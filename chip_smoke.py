@@ -1,0 +1,411 @@
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line (``"phase": ...``):
+
+1. env    -- torch/CUDA versions; the card's name and power limit (the raw
+             ``nvidia-smi --query-gpu=name,power.limit`` line is printed
+             on its own line too).
+2. build  -- compiles every CUDA kernel from ``src/repro_torch/csrc`` with
+             nvcc, one process per source, all started together.
+3. main   -- the serving loop at a deployment's size: ``SpatialServer``
+             over a SPaC-tree (``spac-h``, phi=32, version window 4) of
+             10^7 uniform 2D int32 points in [0, 2^20), then 1 warm-up
+             and 4 measured steps of the uniform stream in the
+             sliding-window shape (each step: snapshot; delete 10^5;
+             insert 10^5 under sync debug mode "error"; 4096 kNN (k=10)
+             and 4096 range-count requests through the ``MicroBatcher``
+             against the snapshot; commit). ``impl="auto"`` must route
+             kNN to the frontier kernel, and it must launch.
+4. check  -- for 256 sampled queries of the last step, kNN distances
+             equal a brute-force direct-form f32 scan over the
+             snapshot's live points bit for bit, and range counts equal
+             an int64 brute-force count.
+5. flat   -- a small index (n = 2048, so R*C <= 2^15) through the same
+             server pattern, where ``auto`` takes the flat kernel; it must
+             launch, and its answers are checked the same way.
+6. kernels -- each kernel at the shapes its path gave it, against its
+             plain PyTorch version on the same inputs (bit-equal), with
+             its time, the plain version's time and its bound.
+7. sync   -- every ``server.insert`` above ran under
+             ``torch.cuda.set_sync_debug_mode("error")``.
+
+The line before the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``. Any failed check raises, and the
+script exits non-zero without the last line. Without CUDA it exits
+with code 2 before printing anything to standard output.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core import queries  # noqa: E402
+from repro_torch.data import points as gen  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
+from repro_torch.kernels.frontier import prep, tuning  # noqa: E402
+from repro_torch.kernels.knn import kernel as kk  # noqa: E402
+from repro_torch.serving import (LatencyRecorder, MicroBatcher,  # noqa: E402
+                                 SpatialServer)
+
+SEED = 0
+N_MAIN = 10_000_000
+BATCH = 100_000
+STEPS, WARMUP = 5, 1
+N_FLAT = 2048
+QUERIES, K = 4096, 10
+PHI, WINDOW = 32, 4
+BOX_SIDE = gen.DEFAULT_HI // 64
+N_CHECK = 256
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32
+# outside the tensor cores; the bound is the larger of bytes / rate and
+# operations / rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# per (query, point) pair the direct form costs D subtractions, D
+# multiplies, D - 1 adds and one compare against the running k-th best
+OPS_PER_PAIR_PER_DIM = 3
+
+
+class SmokeFailure(AssertionError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``reps`` runs, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    sync()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def reset_counts() -> None:
+    kk.reset_launch_count()
+    fk.reset_launch_count()
+
+
+def counts() -> dict:
+    return {"knn_flat": kk.launch_count(), "knn_frontier": fk.launch_count()}
+
+
+@contextlib.contextmanager
+def sync_debug_error():
+    """Raise on any host-device synchronisation inside the block."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# the serving loop
+# ---------------------------------------------------------------------------
+
+def run_server(name: str, n: int, batch: int, steps: int, warmup: int,
+               dev) -> dict:
+    """Build a server over a sliding-window trace and run the pipelined
+    pattern; returns timings, counts and what the check phase needs."""
+    trace = gen.make_trace("sliding-window", seed=SEED, n=n, batch=batch,
+                           steps=steps)
+    # set-up: the trace goes to the card in bulk
+    boot = torch.as_tensor(trace.bootstrap, device=dev)
+    dels = [torch.as_tensor(s.delete, device=dev) for s in trace.steps]
+    inss = [torch.as_tensor(s.insert, device=dev) for s in trace.steps]
+    rng = np.random.default_rng(SEED + 7)
+    stream = [(gen.uniform(rng, QUERIES), *gen.query_boxes(
+        rng, QUERIES, 2, BOX_SIDE)) for _ in range(steps)]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+
+    t0 = time.perf_counter()
+    srv = SpatialServer.build("spac-h", boot, phi=PHI, window=WINDOW,
+                              capacity_points=trace.max_live,
+                              coord_bits=20, device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    batcher = MicroBatcher(max_batch=QUERIES, max_delay_s=1e9)
+    rec = LatencyRecorder()
+    measured_updates = 0
+    for s in range(steps):
+        if s == warmup:
+            rec.reset()          # drop the warm-up: bucket escalations
+        snap = srv.snapshot()
+        batcher.target = snap
+        with rec.timer("delete", batch):
+            srv.delete(dels[s])
+        with sync_debug_error(), rec.timer("insert", batch):
+            srv.insert(inss[s])
+        qpts, lo, hi = stream[s]
+        t1 = time.perf_counter()
+        knn_t = [batcher.submit_knn(qpts[i], K) for i in range(QUERIES)]
+        knn = [t.result() for t in knn_t]
+        sync()
+        rec.record("knn", time.perf_counter() - t1, QUERIES)
+        t1 = time.perf_counter()
+        rng_t = [batcher.submit_range_count(lo[i], hi[i])
+                 for i in range(QUERIES)]
+        cnt = [t.result() for t in rng_t]
+        sync()
+        rec.record("range", time.perf_counter() - t1, QUERIES)
+        with rec.timer("commit"):
+            srv.commit()
+        if s >= warmup:
+            measured_updates += 2 * batch
+    wall = rec.wall_s
+    launches = counts()
+    lat = rec.latency_summary()
+    final = len(srv.head_index)
+    out = {
+        "phase": name, "kind": "spac-h", "n": n, "phi": PHI,
+        "window": WINDOW, "steps": steps, "warmup": warmup,
+        "delete_per_step": batch, "insert_per_step": batch,
+        "queries_per_step": {"knn": QUERIES, "range_count": QUERIES},
+        "k": K, "build_s": build_s,
+        "latency_ms": {op: {p: lat[op][p] for p in
+                            ("p50_ms", "p99_ms", "count")}
+                       for op in lat},
+        "query_per_s": (rec.count("knn") + rec.count("range")) / wall,
+        "update_pts_per_s": measured_updates / wall,
+        "final_size": final, "expected_size": trace.final_size,
+        "capacity_rows": srv.head_index.capacity_rows,
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "routes": dict(srv.head_index.engine.route_counts),
+        "launches": launches, "recoveries": srv.stats["recoveries"],
+        "inserts_under_sync_debug_error": steps,
+    }
+    check(final == trace.final_size,
+          f"{name}: final size {final} != trace count {trace.final_size}")
+    knn_d2 = torch.cat([a[0] for a in knn])
+    knn_ids = torch.cat([a[1] for a in knn])
+    counts_last = torch.cat(cnt)
+    check(knn_d2.shape == (QUERIES, K) and bool(torch.isfinite(
+        knn_d2).all()), f"{name}: kNN d2 not finite of shape (Q, k)")
+    return dict(summary=out, snap=snap, qpts=stream[-1][0],
+                lo=stream[-1][1], hi=stream[-1][2], knn_d2=knn_d2,
+                knn_ids=knn_ids, counts=counts_last)
+
+
+def brute_check(name: str, run: dict, n_check: int, dev) -> dict:
+    """kNN d2 against a direct-form f32 scan over the snapshot's live
+    points (bit for bit); range counts against an int64 count."""
+    pts, ok = queries.flatten_view(run["snap"].index.view())
+    live = pts[ok].float()                                   # (n, 2)
+    live64 = pts[ok].long()
+    rng = np.random.default_rng(SEED + 11)
+    sel = np.sort(rng.choice(QUERIES, size=n_check, replace=False))
+    q = torch.as_tensor(run["qpts"][sel], device=dev).float()
+    want = []
+    for a in range(0, n_check, 8):
+        qq = q[a: a + 8]
+        d0 = qq[:, None, 0] - live[None, :, 0]
+        d1 = qq[:, None, 1] - live[None, :, 1]
+        d2 = d0 * d0 + d1 * d1
+        want.append(torch.topk(d2, K, dim=1, largest=False).values)
+    want = torch.cat(want)
+    got = run["knn_d2"][torch.as_tensor(sel, device=dev)]
+    knn_equal = bool(torch.equal(got, want))
+    lo = torch.as_tensor(run["lo"][sel], device=dev).long()
+    hi = torch.as_tensor(run["hi"][sel], device=dev).long()
+    brute = torch.stack([((live64 >= lo[i]) & (live64 <= hi[i])).all(-1)
+                         .sum() for i in range(n_check)])
+    counts_equal = bool(torch.equal(
+        run["counts"][torch.as_tensor(sel, device=dev)].long(), brute))
+    out = {"phase": f"check-{name}", "queries": n_check,
+           "live_points": int(live.shape[0]),
+           "knn_d2_bit_equal": knn_equal,
+           "range_count_equal": counts_equal,
+           "mean_range_count": float(brute.float().mean())}
+    emit(out)
+    check(knn_equal, f"{name}: kNN d2 differs from the brute-force scan")
+    check(counts_equal, f"{name}: range counts differ from brute force")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions, with bounds
+# ---------------------------------------------------------------------------
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str, dict]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    how = {"bytes": bytes_moved, "ops": ops,
+           "formula": "max(bytes / 3.35e12 B/s, ops / 67e12 fp32 op/s)"}
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), how
+
+
+def flat_kernel_row(run: dict, launches: int, dev) -> dict:
+    view = run["snap"].index.view()
+    pts, ok = queries.flatten_view(view)
+    q = torch.as_tensor(run["qpts"], device=dev)
+    got = kk.knn_flat(q, pts, ok, k=K)
+    want = kk.knn_flat_plain(q, pts, ok, k=K)
+    sync()
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    err = float((got[0] - want[0]).abs().max())
+    ms = time_ms(lambda: kk.knn_flat(q, pts, ok, k=K), reps=20)
+    plain_ms = time_ms(lambda: kk.knn_flat_plain(q, pts, ok, k=K), reps=5)
+    Q, D = q.shape
+    N = pts.shape[0]
+    n_ok = int(ok.sum())
+    bytes_moved = Q * D * 4 + N * D * 4 + N + Q * K * 8
+    ops = Q * n_ok * OPS_PER_PAIR_PER_DIM * D
+    b_ms, by, how = bound(bytes_moved, ops)
+    check(equal, "knn_flat: kernel differs from its plain version")
+    return {"name": "knn_flat", "route": "cuda",
+            "source": "src/repro_torch/csrc/knn_flat.cu",
+            "replaces": "src/repro/kernels/knn/kernel.py:57",
+            "launches": launches, "max_abs_err": err, "bit_equal": equal,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None,
+            "shape": {"Q": Q, "N": N, "valid": n_ok, "D": D, "k": K},
+            "bound_terms": how}
+
+
+def frontier_kernel_row(run: dict, launches: int, dev) -> dict:
+    view = run["snap"].index.view()
+    pts, valid, active, lo, hi = view
+    q = torch.as_tensor(run["qpts"], device=dev)
+    bq, bp = tuning.tiles("cuda")
+    pr = prep.prepare(pts, valid, active, lo, hi, q, block_q=bq,
+                      block_p=bp)
+    got = fk.knn_frontier(pr, pts, valid, active, k=K)
+    want = fk.knn_frontier_plain(pr, pts, valid, active, k=K)
+    sync()
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    err = float((got[0] - want[0]).abs().max())
+    ms = time_ms(lambda: fk.knn_frontier(pr, pts, valid, active, k=K),
+                 reps=10)
+    plain_ms = time_ms(
+        lambda: fk.knn_frontier_plain(pr, pts, valid, active, k=K),
+        reps=2)
+    # what this run's data needs: the groups each block visited
+    R, C, D = pts.shape
+    nqb, G = pr.order.shape
+    br, P = pr.block_r, pr.points_per_group
+    steps = got[2].long()
+    ok = valid & active[:, None]
+    pad = G * br - R
+    if pad:
+        ok = torch.cat([ok, ok.new_zeros((pad, C))])
+    per_group = ok.reshape(G, P).sum(1)                          # (G,)
+    visited = torch.arange(G, device=dev)[None, :] < steps[:, None]
+    groups = torch.where(visited, pr.order.long(), G)
+    union = torch.zeros(G + 1, dtype=torch.bool, device=dev)
+    union[groups.reshape(-1)] = True
+    n_union = int(union[:G].sum())
+    pair_slots = int((per_group[pr.order.long()] * visited).sum())
+    Qp = pr.qs.shape[0]
+    bytes_moved = (Qp * D * 4 + int(steps.sum()) * 8
+                   + n_union * (P * (D * 4 + 1) + br) + Qp * K * 8
+                   + nqb * 4)
+    ops = bq * pair_slots * OPS_PER_PAIR_PER_DIM * D
+    b_ms, by, how = bound(bytes_moved, ops)
+    check(equal, "knn_frontier: kernel differs from its plain version")
+    return {"name": "knn_frontier", "route": "cuda",
+            "source": "src/repro_torch/csrc/knn_frontier.cu",
+            "replaces": "src/repro/kernels/frontier/kernel.py:86",
+            "launches": launches, "max_abs_err": err, "bit_equal": equal,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None,
+            "shape": {"Qp": Qp, "R": R, "C": C, "D": D, "k": K,
+                      "block_q": bq, "block_r": br, "groups": G,
+                      "mean_groups_visited": float(steps.float().mean()),
+                      "max_groups_visited": int(steps.max()),
+                      "distinct_groups_visited": n_union},
+            "bound_terms": how}
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this "
+              "script drives the port on an NVIDIA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "env", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
+    report = build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "kernels": {k: v["seconds"] for k, v in report.items()}})
+
+    main_run = run_server("main", N_MAIN, BATCH, STEPS, WARMUP, dev)
+    emit(main_run["summary"])
+    main_launches = main_run["summary"]["launches"]
+    check(set(main_run["summary"]["routes"]) == {"frontier-kernel:cuda"},
+          f"main: auto took {main_run['summary']['routes']}")
+    check(main_launches["knn_frontier"] > 0,
+          "main: the frontier kernel never launched")
+    brute_check("main", main_run, N_CHECK, dev)
+
+    flat_run = run_server("flat", N_FLAT, 256, 2, 1, dev)
+    emit(flat_run["summary"])
+    flat_launches = flat_run["summary"]["launches"]
+    check(set(flat_run["summary"]["routes"]) == {"flat:cuda"},
+          f"flat: auto took {flat_run['summary']['routes']}")
+    check(flat_launches["knn_flat"] > 0, "flat: the flat kernel never "
+          "launched")
+    brute_check("flat", flat_run, QUERIES, dev)
+    emit({"phase": "sync", "inserts_under_sync_debug_error":
+          STEPS + 2, "raised": False})
+
+    rows = [flat_kernel_row(flat_run, flat_launches["knn_flat"], dev),
+            frontier_kernel_row(main_run, main_launches["knn_frontier"],
+                                dev)]
+    for r in rows:
+        emit({"phase": "kernel", **r})
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,26 @@
+"""The port's spatial indexes: the SPaC-tree family behind the Index API.
+
+Counterpart of ``repro/core``::
+
+    from repro_torch.core import make_index
+    idx = make_index("spac-h", points, phi=32)   # device=None: the card
+    idx = idx.insert(batch).delete(stale)        # functional, auto-capacity
+    d2, ids = idx.knn(queries, k=10)             # exact, batched
+    counts = idx.range_count(lo, hi)             # exact, auto-sized
+
+Modules: ``sfc`` (Morton / Hilbert codes in int64), ``leafstore`` (leaf
+rows), ``spac`` (the SPaC-tree), ``queries`` (chunked kNN and range
+queries), ``engine`` (the exact-by-default planner that routes kNN to the
+CUDA kernels) and ``index`` (registry and facade).
+"""
+
+from . import engine, index, leafstore, queries, sfc, spac  # noqa: F401
+from .engine import QueryEngine  # noqa: F401
+from .index import (BACKENDS, Backend, SpatialIndex,  # noqa: F401
+                    capacity_for, get_backend, make_index, register_backend)
+
+__all__ = [
+    "BACKENDS", "Backend", "QueryEngine", "SpatialIndex", "capacity_for",
+    "engine", "get_backend", "index", "leafstore", "make_index", "queries",
+    "register_backend", "sfc", "spac",
+]

@@ -1,0 +1,354 @@
+"""Unified ``SpatialIndex`` facade over the ported tree families.
+
+Counterpart of ``repro/core/index.py``: a string-keyed backend registry
+plus a thin handle, so callers write
+
+    idx = make_index("spac-h", points, phi=32)     # on the card
+    idx = idx.insert(batch)
+    d2, ids = idx.knn(queries, k=10)
+
+and never touch ``capacity_rows``, ``overflowed``, ``grow`` or
+``compact`` by hand. Row capacity comes from :func:`capacity_for`; an
+insert that overflows is recovered through the ladder
+``grow -> retry -> compact -> retry``.
+
+PyTorch runs eagerly, so there are no update closures to cache: an
+update is the backend's function called on the tree's tensors, and
+queries go through the per-index :class:`QueryEngine`.
+
+Registered kinds: ``spac-h``, ``spac-z``, ``spac-m`` (alias of spac-z),
+``cpam-h`` and ``cpam-z``. The reference's ``porth``, ``kd`` and ``zd``
+and its mesh-sharded ``DistributedIndex`` are not ported yet.
+
+Entry points run on the card: ``make_index(..., device=None)`` resolves
+to CUDA and raises on a host without it (see :mod:`repro_torch.device`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..device import resolve_device
+from . import queries, spac
+from .engine import QueryEngine
+
+NOT_PORTED = ("porth", "kd", "zd")
+
+
+# ---------------------------------------------------------------------------
+# capacity policy
+# ---------------------------------------------------------------------------
+
+def capacity_for(n_points: int, phi: int = 32, slack: int = 4) -> int:
+    """Shared row-capacity heuristic: rows for ``n_points`` with
+    ``slack``x headroom over the dense packing."""
+    return int(slack) * ((int(n_points) + phi - 1) // phi) + 64
+
+
+def _round_capacity(rows: int) -> int:
+    """Round up to a power of two (at least 2^15)."""
+    return 1 << max(int(rows) - 1, 15).bit_length()
+
+
+def tree_bytes(tree) -> int:
+    """Resident bytes of a tree's tensors: shape/dtype arithmetic, never
+    a device read."""
+    return sum(v.nbytes for v in vars(tree).values()
+               if isinstance(v, torch.Tensor))
+
+
+# ---------------------------------------------------------------------------
+# backend registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """Adapter spec every tree family registers: ``build(points, mask, *,
+    phi, capacity_rows, **build_params)``, ``insert/delete(tree, pts,
+    mask, **params)``, and ``grow``/``compact`` for capacity recovery."""
+    name: str
+    build: Callable[..., Any]
+    insert: Callable[..., Any]
+    delete: Callable[..., Any]
+    grow: Callable[..., Any]
+    compact: Callable[..., Any]
+    cap_slack: int = 4
+    build_params: tuple[str, ...] = ()
+    insert_params: tuple[str, ...] = ()
+    defaults: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+BACKENDS: dict[str, Backend] = {}
+
+
+def register_backend(backend: Backend) -> None:
+    """Add (or replace) a backend under ``backend.name``."""
+    BACKENDS[backend.name] = backend
+
+
+def get_backend(kind: str) -> Backend:
+    try:
+        return BACKENDS[kind]
+    except KeyError:
+        if kind in NOT_PORTED:
+            raise KeyError(f"index kind {kind!r} is not ported yet; "
+                           f"ported: {sorted(BACKENDS)}") from None
+        raise KeyError(f"unknown index kind {kind!r}; registered: "
+                       f"{sorted(BACKENDS)}") from None
+
+
+def _spac_build(points, mask, *, phi, capacity_rows, curve, bits,
+                coord_bits):
+    return spac.build(points, mask, phi=phi, curve=curve, bits=bits,
+                      coord_bits=coord_bits, capacity_rows=capacity_rows)
+
+
+def _spac_insert(tree, pts, mask, *, max_overflow_rows, sort_rows):
+    mor = min(int(max_overflow_rows), tree.pts.shape[0])
+    return spac.insert(tree, pts, mask, max_overflow_rows=mor,
+                       sort_rows=sort_rows)
+
+
+for _name, _curve, _sort in (("spac-h", "hilbert", False),
+                             ("spac-z", "morton", False),
+                             ("spac-m", "morton", False),
+                             ("cpam-h", "hilbert", True),
+                             ("cpam-z", "morton", True)):
+    register_backend(Backend(
+        name=_name, build=_spac_build, insert=_spac_insert,
+        delete=spac.delete, grow=spac.grow, compact=spac.compact,
+        cap_slack=4, build_params=("curve", "bits", "coord_bits"),
+        insert_params=("max_overflow_rows", "sort_rows"),
+        defaults=dict(curve=_curve, bits=16, coord_bits=30,
+                      max_overflow_rows=64, sort_rows=_sort)))
+
+
+# ---------------------------------------------------------------------------
+# the facade
+# ---------------------------------------------------------------------------
+
+class SpatialIndex:
+    """Handle over one backend tree; updates return new handles and
+    leave the old tree untouched. Construct via :func:`make_index`."""
+
+    def __init__(self, kind: str, tree, *, phi: int, params: dict,
+                 donate: bool = False, engine: QueryEngine | None = None):
+        self.kind = kind
+        self._backend = get_backend(kind)
+        self._tree = tree
+        self.phi = phi
+        self._params = params
+        self._donate = donate
+        # planning state (flat-scan budget, converged query buffers)
+        # rides along across functional updates
+        self._engine = engine if engine is not None else QueryEngine()
+
+    def _wrap(self, tree) -> "SpatialIndex":
+        return SpatialIndex(self.kind, tree, phi=self.phi,
+                            params=self._params, donate=self._donate,
+                            engine=self._engine)
+
+    def _as_tensor(self, x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _prep(self, pts, mask):
+        pts = self._as_tensor(pts)
+        if mask is None:
+            mask = torch.ones(pts.shape[0], dtype=torch.bool,
+                              device=self.device)
+        else:
+            mask = self._as_tensor(mask, torch.bool)
+        return pts, mask
+
+    def _run_update(self, op: str, tree, pts, mask, extra=None):
+        b = self._backend
+        if op == "delete":
+            return b.delete(tree, pts, mask)
+        kw = {k: self._params[k] for k in b.insert_params}
+        kw.update(extra or {})
+        return b.insert(tree, pts, mask, **kw)
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def tree(self):
+        """The raw backend tree (escape hatch; prefer the facade)."""
+        return self._tree
+
+    @property
+    def device(self) -> torch.device:
+        return self._tree.pts.device
+
+    @property
+    def capacity_rows(self) -> int:
+        return self._tree.pts.shape[0]
+
+    @property
+    def num_rows(self):
+        """Occupied leaf rows (0-d device tensor)."""
+        return self._tree.active.sum(dtype=torch.int32)
+
+    @property
+    def dim(self) -> int:
+        return self._tree.pts.shape[2]
+
+    @property
+    def size(self):
+        """Live point count (0-d device tensor; ``int()`` it to sync)."""
+        return self._tree.size
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes of the tree (metadata only, no device read)."""
+        return tree_bytes(self._tree)
+
+    def __len__(self) -> int:
+        return int(self.size)
+
+    def view(self) -> queries.LeafView:
+        return self._tree.view()
+
+    def block_until_ready(self) -> "SpatialIndex":
+        """Wait for the device work queued so far on the tree's device."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return self
+
+    def extract_points(self):
+        """All (points, valid) pairs flattened."""
+        return spac.extract_points(self._tree)
+
+    # -- updates -----------------------------------------------------------
+
+    def insert(self, new_pts, new_mask=None) -> "SpatialIndex":
+        """Batch insert; grows on overflow, so the result never has
+        ``overflowed`` set (reads the flag: one device sync)."""
+        pts, mask = self._prep(new_pts, new_mask)
+        tree = self._run_update("insert", self._tree, pts, mask)
+        if bool(tree.overflowed):
+            tree = self._recover_insert(tree, pts, mask)
+        return self._wrap(tree)
+
+    def _recover_insert(self, failed_tree, pts, mask):
+        """The grow -> retry -> compact ladder (inserts are all-or-nothing,
+        so the failed tree holds the old contents)."""
+        b = self._backend
+        off = torch.zeros((), dtype=torch.bool, device=self.device)
+        tree = dataclasses.replace(failed_tree, overflowed=off)
+        live = int(tree.size) + pts.shape[0]
+        need = _round_capacity(capacity_for(live, self.phi, b.cap_slack))
+        mor = int(self._params.get("max_overflow_rows", 64))
+        for attempt in range(4):
+            cap = max(need << attempt, 2 * tree.pts.shape[0])
+            tree = (b.grow(tree, cap) if attempt == 0
+                    else b.compact(tree, cap))
+            mor = min(4 * mor, cap)
+            out = self._run_update("insert", tree, pts, mask,
+                                   extra=dict(max_overflow_rows=mor))
+            if not bool(out.overflowed):
+                return out
+            tree = dataclasses.replace(out, overflowed=off)
+        raise RuntimeError(f"{self.kind}: insert of {pts.shape[0]} points "
+                           f"still overflows at capacity_rows={cap}")
+
+    def insert_unchecked(self, new_pts, new_mask=None) -> "SpatialIndex":
+        """Dispatch-only insert for the serving runtime: no host read of
+        ``overflowed``, so the call returns once the update is enqueued.
+        The handle may carry the sticky flag; the caller checks it at its
+        next sync point (:class:`repro_torch.serving.SpatialServer` does
+        at ``commit()``)."""
+        pts, mask = self._prep(new_pts, new_mask)
+        return self._wrap(self._run_update("insert", self._tree, pts,
+                                           mask))
+
+    def delete(self, del_pts, del_mask=None) -> "SpatialIndex":
+        """Batch delete (exact multiset semantics; absent points no-op)."""
+        pts, mask = self._prep(del_pts, del_mask)
+        return self._wrap(self._run_update("delete", self._tree, pts, mask))
+
+    delete_unchecked = delete   # deletes cannot overflow rows
+
+    # -- queries (exact by default; see repro_torch.core.engine) -----------
+
+    @property
+    def engine(self) -> QueryEngine:
+        return self._engine
+
+    def knn(self, qpts, k: int, *, impl: str = "auto"):
+        """Exact batched kNN -> (d2 (Q, k) ascending, flat ids (Q, k)).
+        ``impl``: see :data:`repro_torch.core.engine.KNN_IMPLS`."""
+        return self._engine.knn(self.view(), self._as_tensor(qpts), k,
+                                impl=impl)
+
+    def knn_points(self, qpts, k: int, *, impl: str = "auto"):
+        """kNN returning coordinates: (d2, neighbor points, valid)."""
+        view = self.view()
+        d2, ids = self._engine.knn(view, self._as_tensor(qpts), k,
+                                   impl=impl)
+        return d2, queries.gather_points(view, ids), ids >= 0
+
+    def range_count(self, lo, hi):
+        """Exact batched range count -> counts (Q,)."""
+        return self._engine.range_count(self.view(), self._as_tensor(lo),
+                                        self._as_tensor(hi))
+
+    def range_list(self, lo, hi):
+        """Exact batched range report -> (ids (Q, cap) padded with -1,
+        counts (Q,))."""
+        return self._engine.range_list(self.view(), self._as_tensor(lo),
+                                       self._as_tensor(hi))
+
+    def __repr__(self):
+        return (f"SpatialIndex(kind={self.kind!r}, "
+                f"capacity_rows={self.capacity_rows}, phi={self.phi}, "
+                f"device={self.device})")
+
+
+def make_index(kind: str, points, mask=None, *, phi: int = 32,
+               capacity_rows: int | None = None,
+               capacity_points: int | None = None, device=None,
+               mesh=None, donate: bool = False, **params) -> SpatialIndex:
+    """Build an index of the registered ``kind`` over ``points`` on
+    ``device`` (default: the card; pass ``device="cpu"`` for the CPU).
+
+    ``capacity_points`` sizes row capacity for the lifetime maximum of
+    live points (default ``len(points)``); ``capacity_rows`` overrides
+    the heuristic. Backend options (``curve``, ``bits``, ``coord_bits``,
+    ``max_overflow_rows``, ``sort_rows``) pass through as keywords.
+    ``donate=True`` marks a handle whose caller drops old versions after
+    each update; :class:`repro_torch.serving.SpatialServer` refuses it.
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded indexes are not ported yet")
+    backend = get_backend(kind)
+    dev = resolve_device(device)
+    pts = torch.as_tensor(points, device=dev)
+    n = pts.shape[0]
+    resolved = dict(backend.defaults)
+    unknown = set(params) - set(resolved)
+    if unknown:
+        raise TypeError(f"{kind}: unknown params {sorted(unknown)}; "
+                        f"accepted: {sorted(resolved)}")
+    resolved.update(params)
+    pts_mask = (torch.ones(n, dtype=torch.bool, device=dev) if mask is None
+                else torch.as_tensor(mask, dtype=torch.bool, device=dev))
+    expected = n if mask is None else int(pts_mask.sum())
+    cap = capacity_rows if capacity_rows is not None else capacity_for(
+        capacity_points if capacity_points is not None else n, phi,
+        backend.cap_slack)
+    build_kw = {k: resolved[k] for k in backend.build_params}
+    for _ in range(8):
+        tree = backend.build(pts, pts_mask, phi=phi, capacity_rows=cap,
+                             **build_kw)
+        if int(tree.size) == expected:
+            break
+        # jump at least to the heuristic (explicit caps can be tiny),
+        # then keep doubling
+        cap = max(2 * cap, capacity_for(expected, phi, backend.cap_slack))
+    else:
+        raise RuntimeError(f"{kind}: build of {expected} points overflows "
+                           f"even at capacity_rows={cap}")
+    return SpatialIndex(kind, tree, phi=phi, params=resolved, donate=donate)

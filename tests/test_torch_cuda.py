@@ -1,0 +1,135 @@
+"""The port on the card: each CUDA kernel against its plain PyTorch
+version on the same CUDA tensors (bit-equal), the engine's ``auto``
+routes through the kernels, and a sync-free ``server.insert``.
+
+Every test here carries the ``cuda`` marker and skips where
+``torch.cuda.is_available()`` is false (the decision is made in a
+fixture, never at import). The file imports neither jax nor ``repro``,
+so it runs on a machine with only the port installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import make_index
+from repro_torch.kernels.frontier import kernel as fk
+from repro_torch.kernels.frontier import prep
+from repro_torch.kernels.knn import kernel as kk
+from repro_torch.serving import SpatialServer
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda")
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dim,k", [(1, 3), (2, 1), (2, 10), (3, 100),
+                                   (2, 128)])
+def test_knn_flat_kernel_bit_equal(cuda, dim, k):
+    rng = np.random.default_rng(dim * 1000 + k)
+    q = torch.as_tensor(rng.integers(0, 1 << 20, (700, dim)),
+                        dtype=torch.int32, device=cuda)
+    p = torch.as_tensor(rng.integers(0, 1 << 20, (9000, dim)),
+                        dtype=torch.int32, device=cuda)
+    ok = torch.as_tensor(rng.random(9000) > 0.2, device=cuda)
+    before = kk.launch_count()
+    got = kk.knn_flat(q, p, ok, k=k)
+    assert kk.launch_count() == before + 1
+    _equal(got, kk.knn_flat_plain(q, p, ok, k=k))
+
+
+def test_knn_flat_wrapper_checks(cuda):
+    q = torch.zeros((4, 2), device=cuda)
+    p = torch.zeros((8, 2), device=cuda)
+    ok = torch.ones(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        kk.knn_flat(q, p, ok, k=kk.MAX_K + 1)
+    with pytest.raises(ValueError, match="share a device"):
+        kk.knn_flat(q, p.cpu(), ok, k=2)
+    with pytest.raises(TypeError, match="bool"):
+        kk.knn_flat(q, p, ok.int(), k=2)
+    with pytest.raises(TypeError, match="float32 or int32"):
+        kk.knn_flat(q.double(), p, ok, k=2)
+
+
+def _leaf_data(R, C, dim, Q, dev, seed=11):
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(0, 1 << 20, (R, C, dim)).astype(np.int32)
+    pts = np.sort(pts.reshape(-1, dim), axis=0).reshape(R, C, dim)
+    valid = rng.random((R, C)) > 0.2
+    active = rng.random(R) > 0.1
+    lo = np.where(valid[..., None], pts, 1 << 30).min(axis=1)
+    hi = np.where(valid[..., None], pts, -1).max(axis=1)
+    q = rng.integers(0, 1 << 20, (Q, dim))
+    return [torch.as_tensor(a, device=dev) for a in
+            (pts, valid, active, lo.astype(np.int32), hi.astype(np.int32),
+             q.astype(np.int32))]
+
+
+@pytest.mark.parametrize("R,C,dim,Q,k,bq,bp", [
+    (37, 16, 2, 33, 8, 8, 64),
+    (64, 8, 3, 16, 4, 16, 128),
+    (5, 4, 2, 7, 32, 8, 8),
+    (3000, 64, 2, 777, 10, 32, 512),
+    (3000, 64, 3, 500, 100, 32, 512),
+])
+def test_knn_frontier_kernel_bit_equal(cuda, R, C, dim, Q, k, bq, bp):
+    pts, valid, active, lo, hi, q = _leaf_data(R, C, dim, Q, cuda)
+    pr = prep.prepare(pts, valid, active, lo, hi, q, block_q=bq,
+                      block_p=bp)
+    before = fk.launch_count()
+    got = fk.knn_frontier(pr, pts, valid, active, k=k)
+    assert fk.launch_count() == before + 1
+    _equal(got, fk.knn_frontier_plain(pr, pts, valid, active, k=k))
+
+
+@pytest.mark.parametrize("n,route", [(2000, "flat:cuda"),
+                                     (40_000, "frontier-kernel:cuda")])
+def test_engine_auto_route_on_card(cuda, n, route):
+    rng = np.random.default_rng(n)
+    pts = rng.integers(0, 1 << 20, (n, 2)).astype(np.int32)
+    qs = rng.integers(0, 1 << 20, (256, 2)).astype(np.int32)
+    idx = make_index("spac-h", pts, phi=32, coord_bits=20)   # the card
+    assert idx.device.type == "cuda"
+    d2, ids = idx.knn(qs, 10)
+    assert idx.engine.route_counts == {route: 1}
+    plain = "plain" if route.startswith("flat") else "plain-frontier"
+    _equal((d2, ids), idx.knn(qs, 10, impl=plain))
+    cpu = make_index("spac-h", pts, phi=32, coord_bits=20, device="cpu")
+    d2_cpu, ids_cpu = cpu.knn(qs, 10)
+    assert torch.equal(d2.cpu(), d2_cpu) and torch.equal(ids.cpu(), ids_cpu)
+
+
+def test_server_insert_does_not_sync(cuda):
+    rng = np.random.default_rng(3)
+    pts = rng.integers(0, 1 << 20, (50_000, 2)).astype(np.int32)
+    batch = torch.as_tensor(rng.integers(0, 1 << 20, (4096, 2)),
+                            dtype=torch.int32, device=cuda)
+    srv = SpatialServer.build("spac-h", pts, capacity_points=60_000,
+                              coord_bits=20)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            srv.insert(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    srv.commit()
+    assert len(srv.head_index) == 50_000 + 2 * 4096

@@ -1,0 +1,112 @@
+"""Port parity: the ``repro_torch.core.index`` facade against
+``repro.core.index``: registry and errors, the capacity policy, builds
+and the grow -> retry -> compact recovery ladder (trees bit-equal to the
+reference facade's), and queries through the facade."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import index as jindex
+from repro_torch.core import BACKENDS, index, make_index, spac
+
+torch.set_num_threads(1)
+
+PHI = 8
+RNG = np.random.default_rng(0)
+PTS = RNG.integers(0, 1 << 20, size=(600, 2)).astype(np.int32)
+
+
+def assert_same_tree(idx, ref_idx):
+    got = idx.tree.to_numpy()
+    for f in spac.FIELDS:
+        np.testing.assert_array_equal(got[f],
+                                      np.asarray(getattr(ref_idx.tree, f)),
+                                      err_msg=f)
+
+
+def test_registry_and_errors():
+    assert sorted(BACKENDS) == ["cpam-h", "cpam-z", "spac-h", "spac-m",
+                                "spac-z"]
+    with pytest.raises(KeyError, match="registered"):
+        make_index("octree", PTS, device="cpu")
+    for kind in ("porth", "kd", "zd"):
+        with pytest.raises(KeyError, match="not ported yet"):
+            make_index(kind, PTS, device="cpu")
+    with pytest.raises(TypeError, match="unknown params"):
+        make_index("spac-h", PTS, device="cpu", lam=3)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_index("spac-h", PTS, device="cpu", mesh=object())
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 10_000, 10 ** 7])
+def test_capacity_policy_matches_reference(n):
+    assert index.capacity_for(n, PHI) == jindex.capacity_for(n, PHI)
+    assert index._round_capacity(n) == jindex._round_capacity(n)
+
+
+@pytest.mark.parametrize("kind", sorted(BACKENDS))
+def test_build_bit_equal(kind):
+    ref = jindex.make_index(kind, jnp.asarray(PTS), phi=PHI)
+    idx = make_index(kind, PTS, phi=PHI, device="cpu")
+    assert_same_tree(idx, ref)
+    assert len(idx) == 600 and idx.capacity_rows == ref.capacity_rows
+    assert idx.nbytes == sum(getattr(idx.tree, f).nbytes
+                             for f in spac.FIELDS)
+
+
+def test_tiny_explicit_capacity_build_retries():
+    idx = make_index("spac-h", PTS, phi=PHI, capacity_rows=4,
+                     device="cpu")
+    assert len(idx) == 600
+    assert idx.capacity_rows == jindex.make_index(
+        "spac-h", jnp.asarray(PTS), phi=PHI, capacity_rows=4).capacity_rows
+
+
+def test_recovery_ladder_bit_equal():
+    """Inserting far past capacity goes through grow -> retry (->
+    compact) exactly as the reference facade does: the recovered trees
+    are bit-equal and nothing is lost. (``coord_bits=20`` matches the
+    data's [0, 2^20) domain, so distinct points get distinct codes.)"""
+    ref = jindex.make_index("spac-z", jnp.asarray(PTS), phi=PHI,
+                            coord_bits=20)
+    idx = make_index("spac-z", PTS, phi=PHI, device="cpu", coord_bits=20)
+    rng = np.random.default_rng(1)
+    total = 600
+    for _ in range(3):
+        batch = rng.integers(0, 1 << 20, size=(1500, 2)).astype(np.int32)
+        ref = ref.insert(jnp.asarray(batch))
+        idx = idx.insert(batch)
+        total += 1500
+        assert_same_tree(idx, ref)
+    assert len(idx) == total and not bool(idx.tree.overflowed)
+    gone = idx.delete(PTS[:100])
+    assert_same_tree(gone, ref.delete(jnp.asarray(PTS[:100])))
+    assert len(gone) == total - 100 and len(idx) == total   # functional
+
+
+def test_insert_unchecked_keeps_the_sticky_flag():
+    idx = make_index("spac-h", PTS, phi=PHI, device="cpu")
+    batch = RNG.integers(0, 1 << 20, size=(5000, 2)).astype(np.int32)
+    out = idx.insert_unchecked(batch)
+    assert bool(out.tree.overflowed) and len(out) == 600
+    assert len(idx.insert(batch)) == 5600
+
+
+def test_facade_queries():
+    idx = make_index("spac-h", PTS, phi=PHI, device="cpu")
+    qs = PTS[:4]
+    d2, nbrs, ok = idx.knn_points(qs, 3)
+    assert (d2[:, 0] == 0).all() and ok.all()
+    np.testing.assert_array_equal(nbrs[:, 0].numpy(), qs)
+    lo = np.zeros((1, 2), np.int32)
+    hi = np.full((1, 2), (1 << 20) - 1, np.int32)
+    assert int(idx.range_count(lo, hi)[0]) == 600
+    ids, cnt = idx.range_list(lo, hi)
+    assert int(cnt[0]) == 600 and int((ids >= 0).sum()) == 600
+    pts, ok = idx.extract_points()
+    assert int(ok.sum()) == 600
+    assert idx.block_until_ready() is idx
