@@ -17,18 +17,27 @@ Phases, each printed as one JSON line (``"phase": ...``):
              insert 10^5 under sync debug mode "error"; 4096 kNN (k=10)
              and 4096 range-count requests through the ``MicroBatcher``
              against the snapshot; commit). ``impl="auto"`` must route
-             kNN to the frontier kernel, and it must launch.
+             kNN to the frontier kernel, and it and the row-bbox kernel
+             (on the deletes) must launch.
 4. check  -- for 256 sampled queries of the last step, kNN distances
              equal a brute-force direct-form f32 scan over the
              snapshot's live points bit for bit, and range counts equal
              an int64 brute-force count.
-5. flat   -- a small index (n = 2048, so R*C <= 2^15) through the same
+5. porth  -- the same loop, trace and traffic over a P-Orth tree
+             (``porth``, phi=32, lam=3, 5 rounds, window 4): the sieve
+             kernel must launch on the build and on the inserts, the
+             row-bbox kernel on the deletes, the frontier kernel on kNN;
+             checked as in 4.
+6. flat   -- a small index (n = 2048, so R*C <= 2^15) through the same
              server pattern, where ``auto`` takes the flat kernel; it must
              launch, and its answers are checked the same way.
-6. kernels -- each kernel at the shapes its path gave it, against its
+7. kernels -- each kernel at the shapes its path gave it, against its
              plain PyTorch version on the same inputs (bit-equal), with
-             its time, the plain version's time and its bound.
-7. sync   -- every ``server.insert`` above ran under
+             its time, the plain version's time and its bound: the
+             frontier kernel on main's last batch and on 4 query blocks
+             of porth's, row-bbox on the porth and main trees, the sieve
+             on porth's first build round.
+8. sync   -- every ``server.insert`` above ran under
              ``torch.cuda.set_sync_debug_mode("error")``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -55,9 +64,13 @@ import torch  # noqa: E402
 from repro_torch.core import queries  # noqa: E402
 from repro_torch.data import points as gen  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.bbox import kernel as bk  # noqa: E402
 from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
 from repro_torch.kernels.frontier import prep, tuning  # noqa: E402
 from repro_torch.kernels.knn import kernel as kk  # noqa: E402
+from repro_torch.kernels.sieve import kernel as sk  # noqa: E402
+from repro_torch.kernels.sieve import ops as sieve_ops  # noqa: E402
+from repro_torch.kernels.sieve import ref as sieve_ref  # noqa: E402
 from repro_torch.serving import (LatencyRecorder, MicroBatcher,  # noqa: E402
                                  SpatialServer)
 
@@ -70,6 +83,9 @@ QUERIES, K = 4096, 10
 PHI, WINDOW = 32, 4
 BOX_SIDE = gen.DEFAULT_HI // 64
 N_CHECK = 256
+# query blocks of porth's last kNN batch that hold the frontier kernel
+# against its plain version (the plain walk is one step per group)
+FRONTIER_PORTH_BLOCKS = 4
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32
 # outside the tensor cores; the bound is the larger of bytes / rate and
@@ -79,6 +95,9 @@ FP32_OPS_PER_S = 67e12
 # per (query, point) pair the direct form costs D subtractions, D
 # multiplies, D - 1 adds and one compare against the running k-th best
 OPS_PER_PAIR_PER_DIM = 3
+# per point, level and dimension the sieve takes a midpoint (subtract,
+# halve, add) and a compare
+SIEVE_OPS_PER_LEVEL_DIM = 4
 
 
 class SmokeFailure(AssertionError):
@@ -113,13 +132,20 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+KERNELS = {"knn_flat": kk, "knn_frontier": fk, "row_bbox": bk, "sieve": sk}
+
+
 def reset_counts() -> None:
-    kk.reset_launch_count()
-    fk.reset_launch_count()
+    for mod in KERNELS.values():
+        mod.reset_launch_count()
 
 
 def counts() -> dict:
-    return {"knn_flat": kk.launch_count(), "knn_frontier": fk.launch_count()}
+    return {name: mod.launch_count() for name, mod in KERNELS.items()}
+
+
+def delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in counts().items()}
 
 
 @contextlib.contextmanager
@@ -136,10 +162,11 @@ def sync_debug_error():
 # the serving loop
 # ---------------------------------------------------------------------------
 
-def run_server(name: str, n: int, batch: int, steps: int, warmup: int,
-               dev) -> dict:
-    """Build a server over a sliding-window trace and run the pipelined
-    pattern; returns timings, counts and what the check phase needs."""
+def run_server(name: str, kind: str, n: int, batch: int, steps: int,
+               warmup: int, dev, **build_kw) -> dict:
+    """Build a ``kind`` server over a sliding-window trace and run the
+    pipelined pattern; returns timings, kernel launches (by the op that
+    made them) and what the check phase needs."""
     trace = gen.make_trace("sliding-window", seed=SEED, n=n, batch=batch,
                            steps=steps)
     # set-up: the trace goes to the card in bulk
@@ -154,11 +181,18 @@ def run_server(name: str, n: int, batch: int, steps: int, warmup: int,
     reset_counts()
 
     t0 = time.perf_counter()
-    srv = SpatialServer.build("spac-h", boot, phi=PHI, window=WINDOW,
-                              capacity_points=trace.max_live,
-                              coord_bits=20, device=dev)
+    srv = SpatialServer.build(kind, boot, phi=PHI, window=WINDOW,
+                              capacity_points=trace.max_live, device=dev,
+                              **build_kw)
     sync()
     build_s = time.perf_counter() - t0
+    by_op = {"build": counts()}
+    for op in ("delete", "insert", "query", "commit"):
+        by_op[op] = dict.fromkeys(KERNELS, 0)
+
+    def tally(op: str, before: dict) -> None:
+        for k, v in delta(before).items():
+            by_op[op][k] += v
     batcher = MicroBatcher(max_batch=QUERIES, max_delay_s=1e9)
     rec = LatencyRecorder()
     measured_updates = 0
@@ -167,10 +201,15 @@ def run_server(name: str, n: int, batch: int, steps: int, warmup: int,
             rec.reset()          # drop the warm-up: bucket escalations
         snap = srv.snapshot()
         batcher.target = snap
+        before = counts()
         with rec.timer("delete", batch):
             srv.delete(dels[s])
+        tally("delete", before)
+        before = counts()
         with sync_debug_error(), rec.timer("insert", batch):
             srv.insert(inss[s])
+        tally("insert", before)
+        before = counts()
         qpts, lo, hi = stream[s]
         t1 = time.perf_counter()
         knn_t = [batcher.submit_knn(qpts[i], K) for i in range(QUERIES)]
@@ -183,8 +222,11 @@ def run_server(name: str, n: int, batch: int, steps: int, warmup: int,
         cnt = [t.result() for t in rng_t]
         sync()
         rec.record("range", time.perf_counter() - t1, QUERIES)
+        tally("query", before)
+        before = counts()
         with rec.timer("commit"):
             srv.commit()
+        tally("commit", before)
         if s >= warmup:
             measured_updates += 2 * batch
     wall = rec.wall_s
@@ -192,7 +234,8 @@ def run_server(name: str, n: int, batch: int, steps: int, warmup: int,
     lat = rec.latency_summary()
     final = len(srv.head_index)
     out = {
-        "phase": name, "kind": "spac-h", "n": n, "phi": PHI,
+        "phase": name, "kind": kind, "n": n, "phi": PHI,
+        "build_params": {k: v for k, v in build_kw.items()},
         "window": WINDOW, "steps": steps, "warmup": warmup,
         "delete_per_step": batch, "insert_per_step": batch,
         "queries_per_step": {"knn": QUERIES, "range_count": QUERIES},
@@ -204,9 +247,11 @@ def run_server(name: str, n: int, batch: int, steps: int, warmup: int,
         "update_pts_per_s": measured_updates / wall,
         "final_size": final, "expected_size": trace.final_size,
         "capacity_rows": srv.head_index.capacity_rows,
+        "version_bytes": srv.head_index.nbytes,
         "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
         "routes": dict(srv.head_index.engine.route_counts),
-        "launches": launches, "recoveries": srv.stats["recoveries"],
+        "launches": launches, "launches_by_op": by_op,
+        "recoveries": srv.stats["recoveries"],
         "inserts_under_sync_debug_error": steps,
     }
     check(final == trace.final_size,
@@ -216,7 +261,7 @@ def run_server(name: str, n: int, batch: int, steps: int, warmup: int,
     counts_last = torch.cat(cnt)
     check(knn_d2.shape == (QUERIES, K) and bool(torch.isfinite(
         knn_d2).all()), f"{name}: kNN d2 not finite of shape (Q, k)")
-    return dict(summary=out, snap=snap, qpts=stream[-1][0],
+    return dict(summary=out, snap=snap, boot=boot, qpts=stream[-1][0],
                 lo=stream[-1][1], hi=stream[-1][2], knn_d2=knn_d2,
                 knn_ids=knn_ids, counts=counts_last)
 
@@ -298,25 +343,49 @@ def flat_kernel_row(run: dict, launches: int, dev) -> dict:
             "bound_terms": how}
 
 
-def frontier_kernel_row(run: dict, launches: int, dev) -> dict:
+def timed_once(fn):
+    """``fn()``'s result and its device time in ms, by CUDA events."""
+    sync()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def frontier_kernel_row(run: dict, launches, dev,
+                        n_blocks: int | None = None) -> dict:
+    """The frontier kernel on the run's last snapshot and query batch,
+    prepared as the engine prepares it, against its plain version.
+    ``n_blocks`` keeps that many query blocks, evenly spaced in block
+    order (the plain walk syncs once per group step, too slow for every
+    block of a deep walk); kernel, plain and bound are then all taken on
+    those blocks."""
     view = run["snap"].index.view()
     pts, valid, active, lo, hi = view
     q = torch.as_tensor(run["qpts"], device=dev)
     bq, bp = tuning.tiles("cuda")
     pr = prep.prepare(pts, valid, active, lo, hi, q, block_q=bq,
                       block_p=bp)
+    R, C, D = pts.shape
+    nqb_all = pr.order.shape[0]
+    if n_blocks is not None:
+        sel = torch.linspace(0, nqb_all - 1, n_blocks, device=dev).long()
+        pr = pr._replace(
+            qs=pr.qs.reshape(nqb_all, bq, D)[sel].reshape(-1, D),
+            order=pr.order[sel], glb=pr.glb[sel],
+            inv=torch.arange(n_blocks * bq, device=dev))
     got = fk.knn_frontier(pr, pts, valid, active, k=K)
-    want = fk.knn_frontier_plain(pr, pts, valid, active, k=K)
+    want, plain_ms = timed_once(
+        lambda: fk.knn_frontier_plain(pr, pts, valid, active, k=K))
     sync()
     equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
     err = float((got[0] - want[0]).abs().max())
     ms = time_ms(lambda: fk.knn_frontier(pr, pts, valid, active, k=K),
-                 reps=10)
-    plain_ms = time_ms(
-        lambda: fk.knn_frontier_plain(pr, pts, valid, active, k=K),
-        reps=2)
+                 reps=3 if n_blocks is None else 2, warmup=0)
     # what this run's data needs: the groups each block visited
-    R, C, D = pts.shape
     nqb, G = pr.order.shape
     br, P = pr.block_r, pr.points_per_group
     steps = got[2].long()
@@ -331,6 +400,7 @@ def frontier_kernel_row(run: dict, launches: int, dev) -> dict:
     union[groups.reshape(-1)] = True
     n_union = int(union[:G].sum())
     pair_slots = int((per_group[pr.order.long()] * visited).sum())
+    del visited, groups
     Qp = pr.qs.shape[0]
     bytes_moved = (Qp * D * 4 + int(steps.sum()) * 8
                    + n_union * (P * (D * 4 + 1) + br) + Qp * K * 8
@@ -346,10 +416,193 @@ def frontier_kernel_row(run: dict, launches: int, dev) -> dict:
             "bound_by": by, "library_ms": None,
             "shape": {"Qp": Qp, "R": R, "C": C, "D": D, "k": K,
                       "block_q": bq, "block_r": br, "groups": G,
+                      "query_blocks": nqb, "of_query_blocks": nqb_all,
                       "mean_groups_visited": float(steps.float().mean()),
                       "max_groups_visited": int(steps.max()),
                       "distinct_groups_visited": n_union},
             "bound_terms": how}
+
+
+def frontier_breakdown(name: str, run: dict, dev) -> dict:
+    """Where a kNN batch's time goes on the run's last snapshot: the
+    prep (group boxes, query sort, per-block visit order) and the
+    frontier kernel alone, with the groups each query block walked.
+    These launches come after the path's counts were read."""
+    pts, valid, active, lo, hi = run["snap"].index.view()
+    q = torch.as_tensor(run["qpts"], device=dev)
+    bq, bp = tuning.tiles("cuda")
+
+    def prepare():
+        return prep.prepare(pts, valid, active, lo, hi, q, block_q=bq,
+                            block_p=bp)
+
+    prep_ms = time_ms(prepare, reps=2)
+    pr = prepare()
+    out, kernel_ms = timed_once(
+        lambda: fk.knn_frontier(pr, pts, valid, active, k=K))
+    steps = out[2].float()
+    out = {"phase": f"knn-breakdown-{name}", "prep_ms": prep_ms,
+           "kernel_ms": kernel_ms, "groups": pr.order.shape[1],
+           "points_per_group": pr.points_per_group,
+           "active_rows": int(active.sum()),
+           "mean_groups_visited": float(steps.mean()),
+           "max_groups_visited": int(steps.max())}
+    emit(out)
+    return out
+
+
+def sieve_passes(pts, lo, hi, seg, act, lam: int, n_chunks: int):
+    """One sieve round over segments ``seg`` of active points ``act``,
+    as ``segmented_partition`` runs it: the kernels' pass and the plain
+    versions' pass over the same chunks, each returning ``(hist, dest,
+    bucket, child_lo, child_hi)``."""
+    n = pts.shape[0]
+    cs, cl = sieve_ops.segment_chunks(seg, act, block_n=sieve_ops.BLOCK_N,
+                                      n_chunks=n_chunks)
+    cseg = seg[cs.clamp(max=n - 1).long()]
+
+    def kernels():
+        hist = sk.sieve_histogram_chunks(pts, lo, hi, cs, cl, lam=lam)
+        off = sieve_ops.chunk_offsets(hist, cs, cl, cseg)
+        return (hist, *sk.sieve_rank_chunks(pts, lo, hi, cs, cl, off,
+                                            lam=lam,
+                                            block_n=sieve_ops.BLOCK_N))
+
+    def plain():
+        hist = sieve_ref.sieve_histogram_plain(pts, lo, hi, cs, cl, lam=lam)
+        off = sieve_ops.chunk_offsets(hist, cs, cl, cseg)
+        return (hist, *sieve_ref.sieve_rank_plain(pts, lo, hi, cs, cl, off,
+                                                  lam=lam))
+    return cs, cl, cseg, kernels, plain
+
+
+def sieve_kernel_row(run: dict, launches: dict, dev) -> dict:
+    """Both sieve kernels at the porth build's first round (every point
+    of the bootstrap in one segment of the root cell), against their
+    plain versions; plus float32 [0, 1) and 3D cases over random
+    segments, each bit-equal."""
+    pts = run["boot"]
+    n, D = pts.shape
+    lam = run["summary"]["lam"]
+    lo = torch.zeros_like(pts)
+    hi = torch.full_like(pts, gen.DEFAULT_HI)
+    seg = torch.zeros(n, dtype=torch.int32, device=dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    m = sieve_ops.max_chunks(n, PHI)
+    cs, cl, cseg, kernels, plain = sieve_passes(pts, lo, hi, seg, act, lam,
+                                                m)
+    got, want = kernels(), plain()
+    sync()
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    err = float((got[1] - want[1]).abs().max())
+    off = sieve_ops.chunk_offsets(got[0], cs, cl, cseg)
+    ms = time_ms(lambda: (
+        sk.sieve_histogram_chunks(pts, lo, hi, cs, cl, lam=lam),
+        sk.sieve_rank_chunks(pts, lo, hi, cs, cl, off, lam=lam,
+                             block_n=sieve_ops.BLOCK_N)), reps=10)
+    plain_ms = time_ms(lambda: (
+        sieve_ref.sieve_histogram_plain(pts, lo, hi, cs, cl, lam=lam),
+        sieve_ref.sieve_rank_plain(pts, lo, hi, cs, cl, off, lam=lam)),
+        reps=3)
+    round_ms = time_ms(kernels, reps=10)
+    extra = []
+    rng = np.random.default_rng(SEED + 13)
+    for dtype, dim, lam_x in ((torch.float32, 2, 3), (torch.int32, 3, 2)):
+        nx = 200_000
+        if dtype == torch.float32:
+            xp = torch.as_tensor(rng.random((nx, dim), dtype=np.float32),
+                                 device=dev)
+            xlo, xhi = torch.zeros_like(xp), torch.ones_like(xp)
+        else:
+            xp = torch.as_tensor(gen.uniform(rng, nx, dim), device=dev)
+            xlo = torch.zeros_like(xp)
+            xhi = torch.full_like(xp, gen.DEFAULT_HI)
+        starts = np.unique(np.concatenate([[0], rng.integers(0, nx, 500)]))
+        which = np.searchsorted(starts, np.arange(nx), side="right") - 1
+        xseg = torch.as_tensor(starts[which].astype(np.int32), device=dev)
+        xact = torch.as_tensor((rng.random(starts.shape[0]) < 0.7)[which],
+                               device=dev)
+        *_, xk, xplain = sieve_passes(
+            xp, xlo, xhi, xseg, xact, lam_x,
+            nx // sieve_ops.BLOCK_N + starts.shape[0] + 1)
+        ok = all(bool(torch.equal(x, y)) for x, y in zip(xk(), xplain()))
+        extra.append({"dtype": str(dtype), "n": nx, "D": dim, "lam": lam_x,
+                      "segments": int(starts.shape[0]), "bit_equal": ok})
+        equal = equal and ok
+    K = 1 << (lam * D)
+    # points and their cells in; chunks in; dest, bucket and child cells
+    # out
+    bytes_moved = 3 * n * D * 4 + 2 * m * 4 + 2 * n * 4 + 2 * n * D * 4
+    ops = n * lam * D * SIEVE_OPS_PER_LEVEL_DIM
+    b_ms, by, how = bound(bytes_moved, ops)
+    check(equal, "sieve: kernel differs from its plain version")
+    return {"name": "sieve", "route": "cuda",
+            "source": "src/repro_torch/csrc/sieve.cu",
+            "replaces": "src/repro/kernels/sieve/kernel.py:55",
+            "launches": launches["porth"], "launches_by_path": launches,
+            "max_abs_err": err, "bit_equal": equal, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None,
+            "shape": {"N": n, "D": D, "lam": lam, "buckets": K,
+                      "chunks": m, "block_n": sieve_ops.BLOCK_N,
+                      "dtype": str(pts.dtype)},
+            "timed": "histogram kernel + rank kernel",
+            "with_offsets_scan_ms": round_ms,
+            "extra_cases": extra, "bound_terms": how}
+
+
+def row_bbox_at(tree) -> dict:
+    """The row-bbox kernel over every row of ``tree`` with validity
+    ``valid & active`` (what a delete gives it) against its plain version;
+    ``library_ms`` times ``amin`` + ``amax`` over the masked points (the
+    masking itself not timed)."""
+    pts = tree.pts
+    valid = tree.valid & tree.active[:, None]
+    got = bk.row_bbox(pts, valid)
+    want = bk.row_bbox_plain(pts, valid)
+    sync()
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    err = float(max((a.long() - b.long()).abs().max()
+                    for a, b in zip(got, want)))
+    ms = time_ms(lambda: bk.row_bbox(pts, valid), reps=10)
+    plain_ms = time_ms(lambda: bk.row_bbox_plain(pts, valid), reps=3)
+    big = torch.iinfo(pts.dtype).max
+    m = valid[..., None]
+    lo_in, hi_in = torch.where(m, pts, big), torch.where(m, pts, -big)
+    library_ms = time_ms(lambda: (lo_in.amin(dim=1), hi_in.amax(dim=1)),
+                         reps=3)
+    del lo_in, hi_in
+    R, C, D = pts.shape
+    n_valid = int(valid.sum())
+    # what this run's data needs: every flag, the coordinates of the
+    # valid slots, the two (R, D) outputs
+    bytes_moved = R * C + n_valid * D * 4 + 2 * R * D * 4
+    ops = 2 * n_valid * D
+    b_ms, by, how = bound(bytes_moved, ops)
+    check(equal, "row_bbox: kernel differs from its plain version")
+    return {"max_abs_err": err, "bit_equal": equal, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": library_ms,
+            "shape": {"R": R, "C": C, "D": D, "dtype": str(pts.dtype),
+                      "valid_slots": n_valid,
+                      "active_rows": int(tree.active.sum())},
+            "bound_terms": how}
+
+
+def row_bbox_kernel_row(porth_run: dict, main_run: dict,
+                        launches: dict) -> dict:
+    """The row-bbox kernel at the porth delete's shapes, and again at the
+    spac-h (main) delete's."""
+    at_porth = row_bbox_at(porth_run["snap"].index.tree)
+    at_main = row_bbox_at(main_run["snap"].index.tree)
+    return {"name": "row_bbox", "route": "cuda",
+            "source": "src/repro_torch/csrc/row_bbox.cu",
+            "replaces": "src/repro/kernels/bbox/kernel.py:24",
+            "launches": launches["porth"], "launches_by_path": launches,
+            **at_porth,
+            "library_call": "amin + amax over the masked (R, C, D) points",
+            "bit_equal": at_porth["bit_equal"] and at_main["bit_equal"],
+            "at_main": at_main}
 
 
 # ---------------------------------------------------------------------------
@@ -375,16 +628,38 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: v["seconds"] for k, v in report.items()}})
 
-    main_run = run_server("main", N_MAIN, BATCH, STEPS, WARMUP, dev)
+    main_run = run_server("main", "spac-h", N_MAIN, BATCH, STEPS, WARMUP,
+                          dev, coord_bits=20)
     emit(main_run["summary"])
     main_launches = main_run["summary"]["launches"]
     check(set(main_run["summary"]["routes"]) == {"frontier-kernel:cuda"},
           f"main: auto took {main_run['summary']['routes']}")
     check(main_launches["knn_frontier"] > 0,
           "main: the frontier kernel never launched")
+    check(main_run["summary"]["launches_by_op"]["delete"]["row_bbox"] > 0,
+          "main: the row-bbox kernel never launched on a delete")
     brute_check("main", main_run, N_CHECK, dev)
 
-    flat_run = run_server("flat", N_FLAT, 256, 2, 1, dev)
+    porth_run = run_server("porth", "porth", N_MAIN, BATCH, STEPS, WARMUP,
+                           dev)
+    porth_run["summary"]["lam"] = porth_run["snap"].index.tree.lam
+    emit(porth_run["summary"])
+    porth_ops = porth_run["summary"]["launches_by_op"]
+    check(set(porth_run["summary"]["routes"]) == {"frontier-kernel:cuda"},
+          f"porth: auto took {porth_run['summary']['routes']}")
+    check(porth_ops["build"]["sieve"] > 0,
+          "porth: the sieve kernel never launched on the build")
+    check(porth_ops["insert"]["sieve"] > 0,
+          "porth: the sieve kernel never launched on an insert")
+    check(porth_ops["delete"]["row_bbox"] > 0,
+          "porth: the row-bbox kernel never launched on a delete")
+    check(porth_ops["query"]["knn_frontier"] > 0,
+          "porth: the frontier kernel never launched")
+    brute_check("porth", porth_run, N_CHECK, dev)
+    frontier_breakdown("porth", porth_run, dev)
+
+    flat_run = run_server("flat", "spac-h", N_FLAT, 256, 2, 1, dev,
+                          coord_bits=20)
     emit(flat_run["summary"])
     flat_launches = flat_run["summary"]["launches"]
     check(set(flat_run["summary"]["routes"]) == {"flat:cuda"},
@@ -393,11 +668,25 @@ def main() -> int:
           "launched")
     brute_check("flat", flat_run, QUERIES, dev)
     emit({"phase": "sync", "inserts_under_sync_debug_error":
-          STEPS + 2, "raised": False})
+          2 * STEPS + 2, "raised": False})
 
+    def by_path(name):
+        return {p: r["summary"]["launches"][name] for p, r in
+                (("main", main_run), ("porth", porth_run),
+                 ("flat", flat_run))}
+
+    frontier = frontier_kernel_row(main_run, main_launches["knn_frontier"],
+                                   dev)
+    at_porth = frontier_kernel_row(porth_run, porth_ops["query"][
+        "knn_frontier"], dev, n_blocks=FRONTIER_PORTH_BLOCKS)
+    frontier["bit_equal"] = frontier["bit_equal"] and at_porth["bit_equal"]
+    frontier["at_porth"] = {k: v for k, v in at_porth.items()
+                            if k not in ("name", "route", "source",
+                                         "replaces")}
     rows = [flat_kernel_row(flat_run, flat_launches["knn_flat"], dev),
-            frontier_kernel_row(main_run, main_launches["knn_frontier"],
-                                dev)]
+            frontier,
+            row_bbox_kernel_row(porth_run, main_run, by_path("row_bbox")),
+            sieve_kernel_row(porth_run, by_path("sieve"), dev)]
     for r in rows:
         emit({"phase": "kernel", **r})
     emit({"kernels": rows})

@@ -1,4 +1,5 @@
-"""The port's spatial indexes: the SPaC-tree family behind the Index API.
+"""The port's spatial indexes: the P-Orth tree and the SPaC-tree family
+behind the Index API.
 
 Counterpart of ``repro/core``::
 
@@ -9,18 +10,20 @@ Counterpart of ``repro/core``::
     counts = idx.range_count(lo, hi)             # exact, auto-sized
 
 Modules: ``sfc`` (Morton / Hilbert codes in int64), ``leafstore`` (leaf
-rows), ``spac`` (the SPaC-tree), ``queries`` (chunked kNN and range
-queries), ``engine`` (the exact-by-default planner that routes kNN to the
-CUDA kernels) and ``index`` (registry and facade).
+rows), ``porth`` (the P-Orth tree), ``spac`` (the SPaC-tree),
+``queries`` (chunked kNN and range queries), ``engine`` (the
+exact-by-default planner that routes kNN to the CUDA kernels) and
+``index`` (registry and facade).
 """
 
-from . import engine, index, leafstore, queries, sfc, spac  # noqa: F401
+from . import (engine, index, leafstore, porth, queries, sfc,  # noqa: F401
+               spac)
 from .engine import QueryEngine  # noqa: F401
 from .index import (BACKENDS, Backend, SpatialIndex,  # noqa: F401
                     capacity_for, get_backend, make_index, register_backend)
 
 __all__ = [
     "BACKENDS", "Backend", "QueryEngine", "SpatialIndex", "capacity_for",
-    "engine", "get_backend", "index", "leafstore", "make_index", "queries",
-    "register_backend", "sfc", "spac",
+    "engine", "get_backend", "index", "leafstore", "make_index", "porth",
+    "queries", "register_backend", "sfc", "spac",
 ]

@@ -16,9 +16,10 @@ PyTorch runs eagerly, so there are no update closures to cache: an
 update is the backend's function called on the tree's tensors, and
 queries go through the per-index :class:`QueryEngine`.
 
-Registered kinds: ``spac-h``, ``spac-z``, ``spac-m`` (alias of spac-z),
-``cpam-h`` and ``cpam-z``. The reference's ``porth``, ``kd`` and ``zd``
-and its mesh-sharded ``DistributedIndex`` are not ported yet.
+Registered kinds: ``porth`` (the P-Orth tree), ``spac-h``, ``spac-z``,
+``spac-m`` (alias of spac-z), ``cpam-h`` and ``cpam-z``. The reference's
+``kd`` and ``zd`` and its mesh-sharded ``DistributedIndex`` are not
+ported yet.
 
 Entry points run on the card: ``make_index(..., device=None)`` resolves
 to CUDA and raises on a host without it (see :mod:`repro_torch.device`).
@@ -32,10 +33,11 @@ from typing import Any, Callable
 import torch
 
 from ..device import resolve_device
-from . import queries, spac
+from . import porth, queries, spac
 from .engine import QueryEngine
 
-NOT_PORTED = ("porth", "kd", "zd")
+NOT_PORTED = ("kd", "zd")
+DEFAULT_ROOT_HI = 1 << 20   # porth root for integer points: [0, 2^20)
 
 
 # ---------------------------------------------------------------------------
@@ -68,7 +70,8 @@ def tree_bytes(tree) -> int:
 class Backend:
     """Adapter spec every tree family registers: ``build(points, mask, *,
     phi, capacity_rows, **build_params)``, ``insert/delete(tree, pts,
-    mask, **params)``, and ``grow``/``compact`` for capacity recovery."""
+    mask, **params)``, ``grow``/``compact`` for capacity recovery, and
+    ``resolve(params, points)`` to fill data-dependent defaults."""
     name: str
     build: Callable[..., Any]
     insert: Callable[..., Any]
@@ -79,6 +82,7 @@ class Backend:
     build_params: tuple[str, ...] = ()
     insert_params: tuple[str, ...] = ()
     defaults: dict[str, Any] = dataclasses.field(default_factory=dict)
+    resolve: Callable[[dict, Any], dict] | None = None
 
 
 BACKENDS: dict[str, Backend] = {}
@@ -98,6 +102,45 @@ def get_backend(kind: str) -> Backend:
                            f"ported: {sorted(BACKENDS)}") from None
         raise KeyError(f"unknown index kind {kind!r}; registered: "
                        f"{sorted(BACKENDS)}") from None
+
+
+def _porth_resolve(params: dict, points) -> dict:
+    """lam = 3 in 2D and 2 in 3D (the paper's choice); the root cell is
+    [0, 2^20) per dimension for integer points and [0, 1) for floats."""
+    dim = points.shape[1]
+    out = dict(params)
+    if out.get("lam") is None:
+        out["lam"] = 3 if dim == 2 else 2
+    lo, hi = (0.0, 1.0) if points.dtype.is_floating_point else \
+        (0, DEFAULT_ROOT_HI)
+    for name, fill in (("root_lo", lo), ("root_hi", hi)):
+        if out.get(name) is None:
+            out[name] = torch.full((dim,), fill, dtype=points.dtype,
+                                   device=points.device)
+        out[name] = torch.as_tensor(out[name], device=points.device).to(
+            points.dtype)
+    return out
+
+
+def _porth_build(points, mask, *, phi, capacity_rows, root_lo, root_hi,
+                 lam, rounds):
+    return porth.build(points, root_lo, root_hi, mask, phi=phi, lam=lam,
+                       rounds=rounds, capacity_rows=capacity_rows)
+
+
+def _porth_insert(tree, pts, mask, *, max_overflow_rows):
+    mor = min(int(max_overflow_rows), tree.pts.shape[0])
+    return porth.insert(tree, pts, mask, max_overflow_rows=mor)
+
+
+register_backend(Backend(
+    name="porth", build=_porth_build, insert=_porth_insert,
+    delete=porth.delete, grow=porth.grow, compact=porth.compact,
+    cap_slack=8, build_params=("root_lo", "root_hi", "lam", "rounds"),
+    insert_params=("max_overflow_rows",),
+    defaults=dict(root_lo=None, root_hi=None, lam=None, rounds=5,
+                  max_overflow_rows=64),
+    resolve=_porth_resolve))
 
 
 def _spac_build(points, mask, *, phi, capacity_rows, curve, bits,
@@ -219,7 +262,9 @@ class SpatialIndex:
 
     def extract_points(self):
         """All (points, valid) pairs flattened."""
-        return spac.extract_points(self._tree)
+        R, C, dim = self._tree.pts.shape
+        ok = (self._tree.valid & self._tree.active[:, None]).reshape(R * C)
+        return self._tree.pts.reshape(R * C, dim), ok
 
     # -- updates -----------------------------------------------------------
 
@@ -317,7 +362,9 @@ def make_index(kind: str, points, mask=None, *, phi: int = 32,
     ``capacity_points`` sizes row capacity for the lifetime maximum of
     live points (default ``len(points)``); ``capacity_rows`` overrides
     the heuristic. Backend options (``curve``, ``bits``, ``coord_bits``,
-    ``max_overflow_rows``, ``sort_rows``) pass through as keywords.
+    ``sort_rows`` for the spac family; ``root_lo``, ``root_hi``, ``lam``,
+    ``rounds`` for porth; ``max_overflow_rows`` for both) pass through as
+    keywords.
     ``donate=True`` marks a handle whose caller drops old versions after
     each update; :class:`repro_torch.serving.SpatialServer` refuses it.
     """
@@ -333,6 +380,8 @@ def make_index(kind: str, points, mask=None, *, phi: int = 32,
         raise TypeError(f"{kind}: unknown params {sorted(unknown)}; "
                         f"accepted: {sorted(resolved)}")
     resolved.update(params)
+    if backend.resolve is not None:
+        resolved = backend.resolve(resolved, pts)
     pts_mask = (torch.ones(n, dtype=torch.bool, device=dev) if mask is None
                 else torch.as_tensor(mask, dtype=torch.bool, device=dev))
     expected = n if mask is None else int(pts_mask.sum())
@@ -343,7 +392,7 @@ def make_index(kind: str, points, mask=None, *, phi: int = 32,
     for _ in range(8):
         tree = backend.build(pts, pts_mask, phi=phi, capacity_rows=cap,
                              **build_kw)
-        if int(tree.size) == expected:
+        if not bool(tree.overflowed) and int(tree.size) == expected:
             break
         # jump at least to the heuristic (explicit caps can be tiny),
         # then keep doubling

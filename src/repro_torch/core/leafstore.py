@@ -15,13 +15,10 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.bbox import kernel as bbox_kernel
+from ..kernels.bbox.ref import dtype_max as _big_for
+
 BIG = 3.4e38  # f32 +inf stand-in that survives arithmetic
-
-
-def _big_for(dtype) -> float | int:
-    if dtype.is_floating_point:
-        return torch.finfo(dtype).max
-    return torch.iinfo(dtype).max
 
 
 def _scatter_drop(target, row, col, values, mask):
@@ -59,6 +56,16 @@ def _reduce_drop(base, idx, values, mask, how: str):
                                include_self=True)[:n]
 
 
+def _set_rows_drop(target, idx, values):
+    """``target.at[idx].set(values, mode="drop")`` along dim 0: entries
+    with ``idx`` outside ``[0, R)`` land in a dropped trailing row."""
+    n = target.shape[0]
+    out = torch.cat([target, target.new_zeros((1,) + target.shape[1:])])
+    out[torch.where((idx >= 0) & (idx < n), idx.long(), n)] = \
+        values.to(target.dtype)
+    return out[:n]
+
+
 def chunk_rows_from_sorted(n_total: int, phi: int, device=None):
     """(row, slot) for positions 0..n_total-1 packed into rows of phi."""
     pos = torch.arange(n_total, dtype=torch.int32, device=device)
@@ -82,11 +89,10 @@ def segment_bbox(points, row, mask, num_rows: int):
 
 
 def row_bbox_from_slots(pts, valid):
-    """(lo, hi) over the valid slots of each row. pts: (R, C, D)."""
-    big = _big_for(pts.dtype)
-    m = valid[..., None]
-    return (torch.where(m, pts, big).amin(dim=1),
-            torch.where(m, pts, -big).amax(dim=1))
+    """(lo, hi) over the valid slots of each row, in the points' dtype.
+    pts: (R, C, D). CUDA tensors go to the row-bbox kernel
+    (``kernels/bbox``), CPU tensors to its plain version."""
+    return bbox_kernel.row_bbox(pts, valid)
 
 
 def group_occurrence(group_ids):

@@ -1,4 +1,5 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch
 version beside it (``knn``: flat brute force; ``frontier``: the fused
-frontier walk). Sources live in ``repro_torch/csrc``; :mod:`.build`
-compiles them with ``nvcc`` at first use."""
+frontier walk; ``sieve``: the P-Orth sieve's counting sort; ``bbox``:
+masked per-row bounding boxes). Sources live in ``repro_torch/csrc``;
+:mod:`.build` compiles them with ``nvcc`` at first use."""

@@ -11,7 +11,8 @@ updates are queued behind them on the card.
   device: the facade's host read of ``overflowed`` is deferred. The flag
   is sticky across updates, so one read at the next sync point covers
   every update since the last known-good version. (``delete`` reads one
-  scalar per call in the port, see :func:`repro_torch.core.spac.delete`.)
+  scalar per call in the port, see :func:`repro_torch.core.spac.delete`
+  and :func:`repro_torch.core.porth.delete`.)
 * A bounded version window (``window=``) is the backpressure knob:
   publishing ``v+1`` evicts ``v - window`` and waits on the CUDA event
   recorded when that version was published (the reference's

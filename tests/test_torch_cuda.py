@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (bit-equal), the engine's ``auto``
-routes through the kernels, and a sync-free ``server.insert``.
+routes through the kernels, a P-Orth tree built and updated on the card
+equal to the same tree on the CPU, and a sync-free ``server.insert``.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false (the decision is made in a
@@ -16,10 +17,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import make_index
+from repro_torch.core import make_index, porth
+from repro_torch.kernels.bbox import kernel as bk
 from repro_torch.kernels.frontier import kernel as fk
 from repro_torch.kernels.frontier import prep
 from repro_torch.kernels.knn import kernel as kk
+from repro_torch.kernels.sieve import kernel as sk
+from repro_torch.kernels.sieve import ops as sieve_ops
+from repro_torch.kernels.sieve import ref as sieve_ref
 from repro_torch.serving import SpatialServer
 
 torch.set_num_threads(1)
@@ -117,13 +122,111 @@ def test_engine_auto_route_on_card(cuda, n, route):
     assert torch.equal(d2.cpu(), d2_cpu) and torch.equal(ids.cpu(), ids_cpu)
 
 
-def test_server_insert_does_not_sync(cuda):
+def _sieve_state(rng, dtype, n, dim, dev):
+    if dtype == torch.float32:
+        pts = rng.random((n, dim)).astype(np.float32)
+        lo, hi = np.zeros_like(pts), np.ones_like(pts)
+    else:
+        pts = rng.integers(0, 1 << 20, (n, dim)).astype(np.int32)
+        lo = np.zeros_like(pts)
+        hi = np.full_like(pts, 1 << 20)
+    return [torch.as_tensor(a, device=dev) for a in (pts, lo, hi)]
+
+
+@pytest.mark.parametrize("dtype,n,dim,lam,block_n", [
+    (torch.int32, 100_000, 2, 3, 1024), (torch.float32, 50_000, 2, 3, 256),
+    (torch.int32, 30_000, 3, 2, 1024), (torch.float32, 7, 3, 2, 4096),
+    (torch.int32, 5000, 2, 5, 512)])
+def test_sieve_kernels_bit_equal(cuda, dtype, n, dim, lam, block_n):
+    """Both sieve kernels against their plain versions over random
+    segments (some inactive), and the reference-shaped histogram and
+    partition on the card against the same calls on the CPU (the plain
+    versions)."""
+    rng = np.random.default_rng(n + lam)
+    pts, lo, hi = _sieve_state(rng, dtype, n, dim, cuda)
+    starts = np.unique(np.concatenate([[0], rng.integers(0, n, 60)]))
+    which = np.searchsorted(starts, np.arange(n), side="right") - 1
+    seg = torch.as_tensor(starts[which].astype(np.int32), device=cuda)
+    act = torch.as_tensor((rng.random(starts.shape[0]) < 0.7)[which],
+                          device=cuda)
+    m = n // block_n + starts.shape[0] + 1
+    cs, cl = sieve_ops.segment_chunks(seg, act, block_n=block_n, n_chunks=m)
+    before = sk.launch_count()
+    hist = sk.sieve_histogram_chunks(pts, lo, hi, cs, cl, lam=lam)
+    assert sk.launch_count() == before + 1
+    _equal((hist,), (sieve_ref.sieve_histogram_plain(pts, lo, hi, cs, cl,
+                                                     lam=lam),))
+    off = sieve_ops.chunk_offsets(hist, cs, cl, seg[cs.clamp(max=n - 1)])
+    got = sk.sieve_rank_chunks(pts, lo, hi, cs, cl, off, lam=lam,
+                               block_n=block_n)
+    _equal(got, sieve_ref.sieve_rank_plain(pts, lo, hi, cs, cl, off,
+                                           lam=lam))
+    for fn in (sieve_ops.sieve_histogram, sieve_ops.sieve_partition):
+        got = fn(pts, lo, hi, lam=lam, block_n=block_n)
+        want = fn(pts.cpu(), lo.cpu(), hi.cpu(), lam=lam, block_n=block_n)
+        _equal([g.cpu() for g in got], want)
+
+
+@pytest.mark.parametrize("dtype,R,C,dim", [
+    (torch.int32, 100_000, 64, 2), (torch.float32, 3000, 16, 3),
+    (torch.int32, 9, 70, 1), (torch.float32, 1, 1, 2),
+    (torch.int32, 5000, 48, 2), (torch.float32, 50, 1000, 3)])
+def test_row_bbox_kernel_bit_equal(cuda, dtype, R, C, dim):
+    rng = np.random.default_rng(R + C)
+    if dtype == torch.float32:
+        pts = rng.standard_normal((R, C, dim)).astype(np.float32)
+    else:
+        pts = rng.integers(-(1 << 30), 1 << 30, (R, C, dim)).astype(np.int32)
+    valid = rng.random((R, C)) > 0.5
+    valid[: R // 4] = False
+    p = torch.as_tensor(pts, device=cuda)
+    v = torch.as_tensor(valid, device=cuda)
+    before = bk.launch_count()
+    got = bk.row_bbox(p, v)
+    assert bk.launch_count() == before + 1
+    _equal(got, bk.row_bbox_plain(p, v))
+
+
+def test_row_bbox_kernel_unaligned_flags(cuda):
+    """Flags that start off a 16-byte boundary take the byte loads."""
+    rng = np.random.default_rng(11)
+    R, C = 3000, 64
+    p = torch.as_tensor(rng.integers(-1000, 1000, (R, C, 2)),
+                        dtype=torch.int32, device=cuda)
+    flat = torch.as_tensor(rng.random(R * C + 1) > 0.7, device=cuda)
+    v = flat[1:].view(R, C)
+    assert v.data_ptr() % 16 != 0
+    _equal(bk.row_bbox(p, v), bk.row_bbox_plain(p, v))
+
+
+def test_porth_on_card_equals_cpu(cuda):
+    """The P-Orth tree through the facade on the card (sieve and bbox
+    kernels) equals the same tree on the CPU (plain versions), field for
+    field, after the build and after a delete and an insert."""
+    rng = np.random.default_rng(5)
+    pts = rng.integers(0, 1 << 20, (40_000, 2)).astype(np.int32)
+    new = rng.integers(0, 1 << 20, (4000, 2)).astype(np.int32)
+    sieve0, bbox0 = sk.launch_count(), bk.launch_count()
+    gpu = make_index("porth", pts)
+    cpu = make_index("porth", pts, device="cpu")
+    assert sk.launch_count() > sieve0
+    gpu = gpu.delete(pts[:4000]).insert(new)
+    cpu = cpu.delete(pts[:4000]).insert(new)
+    assert bk.launch_count() > bbox0
+    got, want = gpu.tree.to_numpy(), cpu.tree.to_numpy()
+    for f in porth.FIELDS:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    assert len(gpu) == 40_000
+
+
+@pytest.mark.parametrize("kind", ["spac-h", "porth"])
+def test_server_insert_does_not_sync(cuda, kind):
     rng = np.random.default_rng(3)
     pts = rng.integers(0, 1 << 20, (50_000, 2)).astype(np.int32)
     batch = torch.as_tensor(rng.integers(0, 1 << 20, (4096, 2)),
                             dtype=torch.int32, device=cuda)
-    srv = SpatialServer.build("spac-h", pts, capacity_points=60_000,
-                              coord_bits=20)
+    kw = {} if kind == "porth" else dict(coord_bits=20)
+    srv = SpatialServer.build(kind, pts, capacity_points=60_000, **kw)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:

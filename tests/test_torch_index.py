@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro.core import index as jindex
-from repro_torch.core import BACKENDS, index, make_index, spac
+from repro_torch.core import BACKENDS, index, make_index, porth, spac
 
 torch.set_num_threads(1)
 
@@ -20,26 +20,38 @@ RNG = np.random.default_rng(0)
 PTS = RNG.integers(0, 1 << 20, size=(600, 2)).astype(np.int32)
 
 
+def _fields(kind: str) -> tuple:
+    return porth.FIELDS if kind == "porth" else spac.FIELDS
+
+
 def assert_same_tree(idx, ref_idx):
     got = idx.tree.to_numpy()
-    for f in spac.FIELDS:
+    for f in _fields(idx.kind):
         np.testing.assert_array_equal(got[f],
                                       np.asarray(getattr(ref_idx.tree, f)),
                                       err_msg=f)
 
 
 def test_registry_and_errors():
-    assert sorted(BACKENDS) == ["cpam-h", "cpam-z", "spac-h", "spac-m",
-                                "spac-z"]
+    assert sorted(BACKENDS) == ["cpam-h", "cpam-z", "porth", "spac-h",
+                                "spac-m", "spac-z"]
     with pytest.raises(KeyError, match="registered"):
         make_index("octree", PTS, device="cpu")
-    for kind in ("porth", "kd", "zd"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            make_index(kind, PTS, device="cpu")
     with pytest.raises(TypeError, match="unknown params"):
         make_index("spac-h", PTS, device="cpu", lam=3)
     with pytest.raises(NotImplementedError, match="not ported"):
         make_index("spac-h", PTS, device="cpu", mesh=object())
+
+
+@pytest.mark.parametrize("kind,ported", [("kd", False), ("zd", False),
+                                         ("porth", True)])
+def test_kinds_not_ported_yet_raise(kind, ported):
+    """kd and zd raise "not ported yet"; porth builds."""
+    if ported:
+        assert len(make_index(kind, PTS, phi=PHI, device="cpu")) == 600
+    else:
+        with pytest.raises(KeyError, match="not ported yet"):
+            make_index(kind, PTS, device="cpu")
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 10_000, 10 ** 7])
@@ -55,7 +67,7 @@ def test_build_bit_equal(kind):
     assert_same_tree(idx, ref)
     assert len(idx) == 600 and idx.capacity_rows == ref.capacity_rows
     assert idx.nbytes == sum(getattr(idx.tree, f).nbytes
-                             for f in spac.FIELDS)
+                             for f in _fields(kind))
 
 
 def test_tiny_explicit_capacity_build_retries():
