@@ -28,16 +28,32 @@ Phases, each printed as one JSON line (``"phase": ...``):
              kernel must launch on the build and on the inserts, the
              row-bbox kernel on the deletes, the frontier kernel on kNN;
              checked as in 4.
-6. flat   -- a small index (n = 2048, so R*C <= 2^15) through the same
+6. kd     -- the same loop, trace and traffic over the kd-tree baseline
+             (``kd``, phi=32, max_depth=24): every update is a full
+             rebuild checked on the host, so its inserts do not run under
+             sync debug mode "error"; the frontier kernel must launch on
+             kNN; checked as in 4.
+7. zd     -- the same over the Zd-tree baseline (``zd``, phi=32, bits=15,
+             coord_bits=20, lam=3): the Morton kernel must launch on the
+             build and on every delete and insert (each a rebuild), the
+             frontier kernel on kNN; checked as in 4. Then one zd build
+             and one porth build of the bootstrap at the same row
+             capacity, timed side by side (the paper's encode-and-sort
+             against the sieve).
+8. flat   -- a small index (n = 2048, so R*C <= 2^15) through the same
              server pattern, where ``auto`` takes the flat kernel; it must
              launch, and its answers are checked the same way.
-7. kernels -- each kernel at the shapes its path gave it, against its
+9. spac-z -- one ``spac-z`` build of 10^6 points and one insert (under
+             sync debug mode "error"): the Morton kernel must launch on
+             both.
+10. kernels -- each kernel at the shapes its path gave it, against its
              plain PyTorch version on the same inputs (bit-equal), with
              its time, the plain version's time and its bound: the
              frontier kernel on main's last batch and on 4 query blocks
              of porth's, row-bbox on the porth and main trees, the sieve
-             on porth's first build round.
-8. sync   -- every ``server.insert`` above ran under
+             on porth's first build round, the Morton kernel on zd's
+             build input and on spac-z's.
+11. sync  -- every dynamic kind's ``server.insert`` above ran under
              ``torch.cuda.set_sync_debug_mode("error")``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -49,6 +65,7 @@ with code 2 before printing anything to standard output.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import pathlib
 import subprocess
@@ -61,13 +78,15 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core import queries  # noqa: E402
+from repro_torch.core import (baselines, make_index, porth,  # noqa: E402
+                              queries)
 from repro_torch.data import points as gen  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bbox import kernel as bk  # noqa: E402
 from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
 from repro_torch.kernels.frontier import prep, tuning  # noqa: E402
 from repro_torch.kernels.knn import kernel as kk  # noqa: E402
+from repro_torch.kernels.morton import kernel as mk  # noqa: E402
 from repro_torch.kernels.sieve import kernel as sk  # noqa: E402
 from repro_torch.kernels.sieve import ops as sieve_ops  # noqa: E402
 from repro_torch.kernels.sieve import ref as sieve_ref  # noqa: E402
@@ -79,6 +98,7 @@ N_MAIN = 10_000_000
 BATCH = 100_000
 STEPS, WARMUP = 5, 1
 N_FLAT = 2048
+N_SPACZ = 1_000_000
 QUERIES, K = 4096, 10
 PHI, WINDOW = 32, 4
 BOX_SIDE = gen.DEFAULT_HI // 64
@@ -98,6 +118,9 @@ OPS_PER_PAIR_PER_DIM = 3
 # per point, level and dimension the sieve takes a midpoint (subtract,
 # halve, add) and a compare
 SIEVE_OPS_PER_LEVEL_DIM = 4
+# per point and dimension the Morton encode takes the quantizing shift, a
+# mask, four rounds of shift, or and and, and the combining shift and or
+MORTON_OPS_PER_DIM = 16
 
 
 class SmokeFailure(AssertionError):
@@ -132,7 +155,8 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-KERNELS = {"knn_flat": kk, "knn_frontier": fk, "row_bbox": bk, "sieve": sk}
+KERNELS = {"knn_flat": kk, "knn_frontier": fk, "row_bbox": bk, "sieve": sk,
+           "morton": mk}
 
 
 def reset_counts() -> None:
@@ -146,6 +170,12 @@ def counts() -> dict:
 
 def delta(before: dict) -> dict:
     return {k: v - before[k] for k, v in counts().items()}
+
+
+def free() -> None:
+    """Return the memory of everything dropped so far to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -163,10 +193,13 @@ def sync_debug_error():
 # ---------------------------------------------------------------------------
 
 def run_server(name: str, kind: str, n: int, batch: int, steps: int,
-               warmup: int, dev, **build_kw) -> dict:
+               warmup: int, dev, sync_free: bool = True, **build_kw) -> dict:
     """Build a ``kind`` server over a sliding-window trace and run the
     pipelined pattern; returns timings, kernel launches (by the op that
-    made them) and what the check phase needs."""
+    made them, and by step for the updates) and what the check phase
+    needs. ``sync_free`` runs every insert under sync debug mode
+    "error" (the dynamic kinds; a rebuild kind's insert reads the
+    rebuilt size)."""
     trace = gen.make_trace("sliding-window", seed=SEED, n=n, batch=batch,
                            steps=steps)
     # set-up: the trace goes to the card in bulk
@@ -196,6 +229,7 @@ def run_server(name: str, kind: str, n: int, batch: int, steps: int,
     batcher = MicroBatcher(max_batch=QUERIES, max_delay_s=1e9)
     rec = LatencyRecorder()
     measured_updates = 0
+    by_step = []
     for s in range(steps):
         if s == warmup:
             rec.reset()          # drop the warm-up: bucket escalations
@@ -204,10 +238,14 @@ def run_server(name: str, kind: str, n: int, batch: int, steps: int,
         before = counts()
         with rec.timer("delete", batch):
             srv.delete(dels[s])
+        step = {"delete": delta(before)}
         tally("delete", before)
         before = counts()
-        with sync_debug_error(), rec.timer("insert", batch):
+        guard = sync_debug_error() if sync_free else contextlib.nullcontext()
+        with guard, rec.timer("insert", batch):
             srv.insert(inss[s])
+        step["insert"] = delta(before)
+        by_step.append(step)
         tally("insert", before)
         before = counts()
         qpts, lo, hi = stream[s]
@@ -252,7 +290,7 @@ def run_server(name: str, kind: str, n: int, batch: int, steps: int,
         "routes": dict(srv.head_index.engine.route_counts),
         "launches": launches, "launches_by_op": by_op,
         "recoveries": srv.stats["recoveries"],
-        "inserts_under_sync_debug_error": steps,
+        "inserts_under_sync_debug_error": steps if sync_free else 0,
     }
     check(final == trace.final_size,
           f"{name}: final size {final} != trace count {trace.final_size}")
@@ -261,7 +299,8 @@ def run_server(name: str, kind: str, n: int, batch: int, steps: int,
     counts_last = torch.cat(cnt)
     check(knn_d2.shape == (QUERIES, K) and bool(torch.isfinite(
         knn_d2).all()), f"{name}: kNN d2 not finite of shape (Q, k)")
-    return dict(summary=out, snap=snap, boot=boot, qpts=stream[-1][0],
+    return dict(summary=out, by_step=by_step, snap=snap, boot=boot,
+                qpts=stream[-1][0],
                 lo=stream[-1][1], hi=stream[-1][2], knn_d2=knn_d2,
                 knn_ids=knn_ids, counts=counts_last)
 
@@ -605,6 +644,168 @@ def row_bbox_kernel_row(porth_run: dict, main_run: dict,
             "at_main": at_main}
 
 
+def morton_at(pts, bits: int, coord_bits: int) -> dict:
+    """The Morton kernel on ``pts`` against its plain version; no single
+    PyTorch call computes the interleave, so there is no library time."""
+    got = mk.morton_encode(pts, bits=bits, coord_bits=coord_bits)
+    want = mk.morton_encode_plain(pts, bits=bits, coord_bits=coord_bits)
+    sync()
+    equal = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    ms = time_ms(lambda: mk.morton_encode(pts, bits=bits,
+                                          coord_bits=coord_bits), reps=20)
+    plain_ms = time_ms(lambda: mk.morton_encode_plain(
+        pts, bits=bits, coord_bits=coord_bits), reps=5)
+    n, D = pts.shape
+    # each coordinate read once, each int64 code written once
+    bytes_moved = n * D * 4 + n * 8
+    ops = n * D * MORTON_OPS_PER_DIM
+    b_ms, by, how = bound(bytes_moved, ops)
+    return {"max_abs_err": err, "bit_equal": equal, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None,
+            "shape": {"N": n, "D": D, "bits": bits, "coord_bits": coord_bits,
+                      "dtype": str(pts.dtype)},
+            "bound_terms": how}
+
+
+def morton_kernel_row(zd_boot, spacz_pts, launches: dict) -> dict:
+    """The Morton kernel at zd's build input (bits 15, coord_bits 20) and
+    at spac-z's (bits 16, coord_bits 20)."""
+    at_zd = morton_at(zd_boot, 15, 20)
+    at_spacz = morton_at(spacz_pts, 16, 20)
+    equal = at_zd["bit_equal"] and at_spacz["bit_equal"]
+    check(equal, "morton: kernel differs from its plain version")
+    return {"name": "morton", "route": "cuda",
+            "source": "src/repro_torch/csrc/morton.cu",
+            "replaces": "src/repro/kernels/morton/kernel.py:47",
+            "launches": launches["zd"], "launches_by_path": launches,
+            **at_zd, "bit_equal": equal, "at_spac_z": at_spacz}
+
+
+# ---------------------------------------------------------------------------
+# the kd and Zd baselines, and the Morton kernel on spac-z
+# ---------------------------------------------------------------------------
+
+def run_baseline(name: str, dev, **build_kw) -> dict:
+    """The serving loop over a rebuild baseline, checked as main is; the
+    snapshot is dropped once the checks have read it."""
+    run = run_server(name, name, N_MAIN, BATCH, STEPS, WARMUP, dev,
+                     sync_free=False, **build_kw)
+    emit(run["summary"])
+    ops = run["summary"]["launches_by_op"]
+    check(set(run["summary"]["routes"]) == {"frontier-kernel:cuda"},
+          f"{name}: auto took {run['summary']['routes']}")
+    check(ops["query"]["knn_frontier"] > 0,
+          f"{name}: the frontier kernel never launched")
+    brute_check(name, run, N_CHECK, dev)
+    frontier_breakdown(name, run, dev)
+    run["capacity_rows"] = run["snap"].index.capacity_rows
+    del run["snap"]
+    free()
+    return run
+
+
+def device_ops(fn, top: int = 6) -> dict:
+    """``fn()`` once under ``torch.profiler``: the device time of its
+    kernels, the kernels that took the most of it and the torch ops that
+    launched the most (self device time, summed over calls). The
+    profiler's "Command Buffer Full" records (the host waiting for room
+    in the launch queue) are not device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync()
+    del out
+    events = [e for e in prof.key_averages()
+              if e.self_device_time_total > 0
+              and "Command Buffer Full" not in e.key]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events if e.device_type == DeviceType.CPU]
+
+    def head(rows):
+        rows = sorted(rows, key=lambda e: e.self_device_time_total,
+                      reverse=True)
+        return [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                 "calls": e.count} for e in rows[:top]]
+    return {"kernel_ms": sum(e.self_device_time_total
+                             for e in kernels) / 1e3,
+            "kernels": head(kernels), "ops": head(ops)}
+
+
+def build_compare(kd_run: dict, zd_run: dict, porth_run: dict,
+                  dev) -> dict:
+    """One zd build and one porth build of the bootstrap at zd's final
+    row capacity -- Morton encode and a full sort against the sieve (the
+    paper's Sec. 3 claim) -- and one kd build at kd's, each timed alone
+    by CUDA events and then run once more under the profiler."""
+    boot, rows = zd_run["boot"], zd_run["capacity_rows"]
+    ptree = porth_run["snap"].index.tree
+    D = boot.shape[1]
+    lo = torch.zeros(D, dtype=boot.dtype, device=dev)
+    hi = torch.full((D,), gen.DEFAULT_HI, dtype=boot.dtype, device=dev)
+    builds = {
+        "zd": lambda: baselines.zd_build(
+            boot, phi=PHI, capacity_rows=rows,
+            **zd_run["summary"]["build_params"]),
+        "porth": lambda: porth.build(
+            boot, lo, hi, phi=PHI, lam=ptree.lam, rounds=ptree.rounds,
+            capacity_rows=rows),
+        "kd": lambda: baselines.kd_build(
+            boot, phi=PHI, capacity_rows=kd_run["capacity_rows"],
+            **kd_run["summary"]["build_params"])}
+    out = {"phase": "build-compare", "n": int(boot.shape[0]),
+           "capacity_rows": {"zd": rows, "porth": rows,
+                             "kd": kd_run["capacity_rows"]},
+           "facade_build_s": {name: r["summary"]["build_s"] for name, r in
+                              (("zd", zd_run), ("porth", porth_run),
+                               ("kd", kd_run))}}
+    for name, fn in builds.items():
+        tree, ms = timed_once(fn)
+        size = int(tree.size)
+        del tree
+        free()
+        out[name] = {"build_ms": ms, "size": size, "profile": device_ops(fn)}
+        free()
+        check(size == boot.shape[0], f"build-compare: the {name} build "
+              f"holds {size} of {boot.shape[0]} points")
+    emit(out)
+    return out
+
+
+def spacz_morton(dev) -> tuple:
+    """A spac-z server over 10^6 uniform points and one insert under sync
+    debug mode "error": the Morton kernel must launch on both."""
+    rng = np.random.default_rng(SEED + 17)
+    pts = torch.as_tensor(gen.uniform(rng, N_SPACZ), device=dev)
+    new = torch.as_tensor(gen.uniform(rng, BATCH), device=dev)
+    sync()
+    reset_counts()
+    srv = SpatialServer.build("spac-z", pts, phi=PHI, window=WINDOW,
+                              capacity_points=N_SPACZ + BATCH,
+                              coord_bits=20, device=dev)
+    sync()
+    built = counts()
+    with sync_debug_error():
+        srv.insert(new)
+    srv.commit()
+    inserted = delta(built)
+    size = len(srv.head_index)
+    out = {"phase": "spac-z", "n": N_SPACZ, "insert": BATCH,
+           "final_size": size, "launches": counts(),
+           "morton_launches": {"build": built["morton"],
+                               "insert": inserted["morton"]}}
+    emit(out)
+    check(built["morton"] > 0, "spac-z: the Morton kernel never launched "
+          "on the build")
+    check(inserted["morton"] > 0, "spac-z: the Morton kernel never "
+          "launched on the insert")
+    check(size == N_SPACZ + BATCH, f"spac-z: size {size}")
+    return pts, out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -657,6 +858,18 @@ def main() -> int:
           "porth: the frontier kernel never launched")
     brute_check("porth", porth_run, N_CHECK, dev)
     frontier_breakdown("porth", porth_run, dev)
+    free()
+
+    kd_run = run_baseline("kd", dev, max_depth=24)
+    zd_run = run_baseline("zd", dev, bits=15, coord_bits=20, lam=3)
+    zd_ops = zd_run["summary"]["launches_by_op"]
+    check(zd_ops["build"]["morton"] > 0,
+          "zd: the Morton kernel never launched on the build")
+    for s, step in enumerate(zd_run["by_step"]):
+        for op in ("delete", "insert"):
+            check(step[op]["morton"] > 0, f"zd: the Morton kernel never "
+                  f"launched on step {s}'s {op}")
+    build_compare(kd_run, zd_run, porth_run, dev)
 
     flat_run = run_server("flat", "spac-h", N_FLAT, 256, 2, 1, dev,
                           coord_bits=20)
@@ -667,13 +880,16 @@ def main() -> int:
     check(flat_launches["knn_flat"] > 0, "flat: the flat kernel never "
           "launched")
     brute_check("flat", flat_run, QUERIES, dev)
+    spacz_pts, spacz = spacz_morton(dev)
     emit({"phase": "sync", "inserts_under_sync_debug_error":
-          2 * STEPS + 2, "raised": False})
+          2 * STEPS + 2 + 1, "raised": False})
 
     def by_path(name):
-        return {p: r["summary"]["launches"][name] for p, r in
-                (("main", main_run), ("porth", porth_run),
-                 ("flat", flat_run))}
+        out = {p: r["summary"]["launches"][name] for p, r in
+               (("main", main_run), ("porth", porth_run), ("kd", kd_run),
+                ("zd", zd_run), ("flat", flat_run))}
+        out["spac-z"] = spacz["launches"][name]
+        return out
 
     frontier = frontier_kernel_row(main_run, main_launches["knn_frontier"],
                                    dev)
@@ -683,10 +899,12 @@ def main() -> int:
     frontier["at_porth"] = {k: v for k, v in at_porth.items()
                             if k not in ("name", "route", "source",
                                          "replaces")}
+    frontier["launches_by_path"] = by_path("knn_frontier")
     rows = [flat_kernel_row(flat_run, flat_launches["knn_flat"], dev),
             frontier,
             row_bbox_kernel_row(porth_run, main_run, by_path("row_bbox")),
-            sieve_kernel_row(porth_run, by_path("sieve"), dev)]
+            sieve_kernel_row(porth_run, by_path("sieve"), dev),
+            morton_kernel_row(zd_run["boot"], spacz_pts, by_path("morton"))]
     for r in rows:
         emit({"phase": "kernel", **r})
     emit({"kernels": rows})

@@ -5,11 +5,11 @@ The package mirrors ``repro``'s module layout so every module's
 counterpart sits at the same relative path:
 
   * ``repro_torch.core``    -- SFC encodings, leaf-row machinery, the
-    P-Orth tree, the SPaC-tree family, the query engine and the
-    ``make_index`` facade
+    P-Orth tree, the SPaC-tree family, the kd / Zd baselines, the query
+    engine and the ``make_index`` facade
   * ``repro_torch.kernels`` -- hand-written CUDA kernels (flat and
-    frontier kNN, the sieve, row bounding boxes) with a plain PyTorch
-    version beside each
+    frontier kNN, the sieve, row bounding boxes, Morton encode) with a
+    plain PyTorch version beside each
   * ``repro_torch.data``    -- numpy workload generators and traces
   * ``repro_torch.serving`` -- the versioned ``SpatialServer`` and the
     ``MicroBatcher``

@@ -17,9 +17,12 @@ update is the backend's function called on the tree's tensors, and
 queries go through the per-index :class:`QueryEngine`.
 
 Registered kinds: ``porth`` (the P-Orth tree), ``spac-h``, ``spac-z``,
-``spac-m`` (alias of spac-z), ``cpam-h`` and ``cpam-z``. The reference's
-``kd`` and ``zd`` and its mesh-sharded ``DistributedIndex`` are not
-ported yet.
+``spac-m`` (alias of spac-z), ``cpam-h`` and ``cpam-z`` (dynamic: updated
+in place in fixed arrays with a sticky ``overflowed`` flag), and the
+rebuild baselines ``kd`` and ``zd`` (each update re-runs the build; the
+facade sizes rows from a host-side bound on live points and verifies the
+rebuilt size, so their updates synchronise). The reference's
+mesh-sharded ``DistributedIndex`` is not ported yet.
 
 Entry points run on the card: ``make_index(..., device=None)`` resolves
 to CUDA and raises on a host without it (see :mod:`repro_torch.device`).
@@ -33,10 +36,9 @@ from typing import Any, Callable
 import torch
 
 from ..device import resolve_device
-from . import porth, queries, spac
+from . import baselines, porth, queries, spac
 from .engine import QueryEngine
 
-NOT_PORTED = ("kd", "zd")
 DEFAULT_ROOT_HI = 1 << 20   # porth root for integer points: [0, 2^20)
 
 
@@ -70,17 +72,22 @@ def tree_bytes(tree) -> int:
 class Backend:
     """Adapter spec every tree family registers: ``build(points, mask, *,
     phi, capacity_rows, **build_params)``, ``insert/delete(tree, pts,
-    mask, **params)``, ``grow``/``compact`` for capacity recovery, and
-    ``resolve(params, points)`` to fill data-dependent defaults."""
+    mask, **params)`` and ``resolve(params, points)`` to fill
+    data-dependent defaults. ``dynamic`` backends update in place (fixed
+    arrays and an ``overflowed`` flag) and provide ``grow``/``compact``
+    for capacity recovery; rebuild backends re-run ``build`` and take
+    ``capacity_rows`` as an update param instead."""
     name: str
     build: Callable[..., Any]
     insert: Callable[..., Any]
     delete: Callable[..., Any]
-    grow: Callable[..., Any]
-    compact: Callable[..., Any]
+    dynamic: bool
+    grow: Callable[..., Any] | None = None
+    compact: Callable[..., Any] | None = None
     cap_slack: int = 4
     build_params: tuple[str, ...] = ()
     insert_params: tuple[str, ...] = ()
+    delete_params: tuple[str, ...] = ()
     defaults: dict[str, Any] = dataclasses.field(default_factory=dict)
     resolve: Callable[[dict, Any], dict] | None = None
 
@@ -97,9 +104,6 @@ def get_backend(kind: str) -> Backend:
     try:
         return BACKENDS[kind]
     except KeyError:
-        if kind in NOT_PORTED:
-            raise KeyError(f"index kind {kind!r} is not ported yet; "
-                           f"ported: {sorted(BACKENDS)}") from None
         raise KeyError(f"unknown index kind {kind!r}; registered: "
                        f"{sorted(BACKENDS)}") from None
 
@@ -135,8 +139,9 @@ def _porth_insert(tree, pts, mask, *, max_overflow_rows):
 
 register_backend(Backend(
     name="porth", build=_porth_build, insert=_porth_insert,
-    delete=porth.delete, grow=porth.grow, compact=porth.compact,
-    cap_slack=8, build_params=("root_lo", "root_hi", "lam", "rounds"),
+    delete=porth.delete, dynamic=True, grow=porth.grow,
+    compact=porth.compact, cap_slack=8,
+    build_params=("root_lo", "root_hi", "lam", "rounds"),
     insert_params=("max_overflow_rows",),
     defaults=dict(root_lo=None, root_hi=None, lam=None, rounds=5,
                   max_overflow_rows=64),
@@ -162,11 +167,59 @@ for _name, _curve, _sort in (("spac-h", "hilbert", False),
                              ("cpam-z", "morton", True)):
     register_backend(Backend(
         name=_name, build=_spac_build, insert=_spac_insert,
-        delete=spac.delete, grow=spac.grow, compact=spac.compact,
-        cap_slack=4, build_params=("curve", "bits", "coord_bits"),
+        delete=spac.delete, dynamic=True, grow=spac.grow,
+        compact=spac.compact, cap_slack=4,
+        build_params=("curve", "bits", "coord_bits"),
         insert_params=("max_overflow_rows", "sort_rows"),
         defaults=dict(curve=_curve, bits=16, coord_bits=30,
                       max_overflow_rows=64, sort_rows=_sort)))
+
+
+def _kd_build(points, mask, *, phi, capacity_rows, max_depth):
+    return baselines.kd_build(points, mask, phi=phi, max_depth=max_depth,
+                              capacity_rows=capacity_rows)
+
+
+def _kd_insert(tree, pts, mask, *, capacity_rows, max_depth):
+    return baselines.kd_insert(tree, pts, mask, max_depth=max_depth,
+                               capacity_rows=capacity_rows)
+
+
+def _kd_delete(tree, pts, mask, *, capacity_rows, max_depth):
+    return baselines.kd_delete(tree, pts, mask, max_depth=max_depth,
+                               capacity_rows=capacity_rows)
+
+
+def _zd_build(points, mask, *, phi, capacity_rows, bits, coord_bits, lam):
+    return baselines.zd_build(points, mask, phi=phi, bits=bits,
+                              coord_bits=coord_bits, lam=lam,
+                              capacity_rows=capacity_rows)
+
+
+def _zd_insert(tree, pts, mask, *, capacity_rows, bits, coord_bits, lam):
+    return baselines.zd_insert(tree, pts, mask, bits=bits,
+                               coord_bits=coord_bits, lam=lam,
+                               capacity_rows=capacity_rows)
+
+
+def _zd_delete(tree, pts, mask, *, capacity_rows, bits, coord_bits, lam):
+    return baselines.zd_delete(tree, pts, mask, bits=bits,
+                               coord_bits=coord_bits, lam=lam,
+                               capacity_rows=capacity_rows)
+
+
+register_backend(Backend(
+    name="kd", build=_kd_build, insert=_kd_insert, delete=_kd_delete,
+    dynamic=False, cap_slack=4, build_params=("max_depth",),
+    insert_params=("max_depth",), delete_params=("max_depth",),
+    defaults=dict(max_depth=24)))
+
+register_backend(Backend(
+    name="zd", build=_zd_build, insert=_zd_insert, delete=_zd_delete,
+    dynamic=False, cap_slack=8, build_params=("bits", "coord_bits", "lam"),
+    insert_params=("bits", "coord_bits", "lam"),
+    delete_params=("bits", "coord_bits", "lam"),
+    defaults=dict(bits=15, coord_bits=20, lam=3)))
 
 
 # ---------------------------------------------------------------------------
@@ -178,21 +231,32 @@ class SpatialIndex:
     leave the old tree untouched. Construct via :func:`make_index`."""
 
     def __init__(self, kind: str, tree, *, phi: int, params: dict,
-                 donate: bool = False, engine: QueryEngine | None = None):
+                 donate: bool = False, size_hint: int = 0,
+                 rebuild_rows: int = 0, engine: QueryEngine | None = None):
         self.kind = kind
         self._backend = get_backend(kind)
         self._tree = tree
         self.phi = phi
         self._params = params
         self._donate = donate
+        # host-side upper bound on live points (rebuild backends size
+        # their next rebuild from it without a device read; never
+        # decremented, so capacity stays sufficient)
+        self._size_hint = size_hint
+        self._rebuild_rows = rebuild_rows
         # planning state (flat-scan budget, converged query buffers)
         # rides along across functional updates
         self._engine = engine if engine is not None else QueryEngine()
 
-    def _wrap(self, tree) -> "SpatialIndex":
-        return SpatialIndex(self.kind, tree, phi=self.phi,
-                            params=self._params, donate=self._donate,
-                            engine=self._engine)
+    def _wrap(self, tree, size_hint=None, rebuild_rows=None) -> \
+            "SpatialIndex":
+        return SpatialIndex(
+            self.kind, tree, phi=self.phi, params=self._params,
+            donate=self._donate,
+            size_hint=self._size_hint if size_hint is None else size_hint,
+            rebuild_rows=(self._rebuild_rows if rebuild_rows is None
+                          else rebuild_rows),
+            engine=self._engine)
 
     def _as_tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -208,11 +272,11 @@ class SpatialIndex:
 
     def _run_update(self, op: str, tree, pts, mask, extra=None):
         b = self._backend
-        if op == "delete":
-            return b.delete(tree, pts, mask)
-        kw = {k: self._params[k] for k in b.insert_params}
+        names = b.insert_params if op == "insert" else b.delete_params
+        kw = {k: self._params[k] for k in names}
         kw.update(extra or {})
-        return b.insert(tree, pts, mask, **kw)
+        fn = b.insert if op == "insert" else b.delete
+        return fn(tree, pts, mask, **kw)
 
     # -- introspection -----------------------------------------------------
 
@@ -272,10 +336,31 @@ class SpatialIndex:
         """Batch insert; grows on overflow, so the result never has
         ``overflowed`` set (reads the flag: one device sync)."""
         pts, mask = self._prep(new_pts, new_mask)
+        if not self._backend.dynamic:
+            return self._rebuild_insert(pts, mask)
         tree = self._run_update("insert", self._tree, pts, mask)
         if bool(tree.overflowed):
             tree = self._recover_insert(tree, pts, mask)
         return self._wrap(tree)
+
+    def _rebuild_insert(self, pts, mask) -> "SpatialIndex":
+        """Insert for rebuild backends: rows from the host-side size
+        bound, then a size check, doubling rows on a shortfall (a rebuild
+        drops points past row capacity with no flag, and clustered data
+        can need far more rows than the heuristic)."""
+        b = self._backend
+        hint = self._size_hint + pts.shape[0]
+        rows = max(self._rebuild_rows, _round_capacity(
+            capacity_for(hint, self.phi, b.cap_slack)))
+        expected = int(self._tree.size) + int(mask.sum())
+        for _ in range(6):
+            tree = self._run_update("insert", self._tree, pts, mask,
+                                    extra=dict(capacity_rows=rows))
+            if int(tree.size) == expected:
+                return self._wrap(tree, size_hint=hint, rebuild_rows=rows)
+            rows = 2 * rows
+        raise RuntimeError(f"{self.kind}: insert of {pts.shape[0]} points "
+                           f"still overflows at capacity_rows={rows}")
 
     def _recover_insert(self, failed_tree, pts, mask):
         """The grow -> retry -> compact ladder (inserts are all-or-nothing,
@@ -304,7 +389,10 @@ class SpatialIndex:
         ``overflowed``, so the call returns once the update is enqueued.
         The handle may carry the sticky flag; the caller checks it at its
         next sync point (:class:`repro_torch.serving.SpatialServer` does
-        at ``commit()``)."""
+        at ``commit()``). Rebuild backends (kd, zd) take the checked
+        :meth:`insert`: their size check reads the device."""
+        if not self._backend.dynamic:
+            return self.insert(new_pts, new_mask)
         pts, mask = self._prep(new_pts, new_mask)
         return self._wrap(self._run_update("insert", self._tree, pts,
                                            mask))
@@ -312,6 +400,13 @@ class SpatialIndex:
     def delete(self, del_pts, del_mask=None) -> "SpatialIndex":
         """Batch delete (exact multiset semantics; absent points no-op)."""
         pts, mask = self._prep(del_pts, del_mask)
+        if not self._backend.dynamic:
+            # removal only shrinks groups, never splits them, so the
+            # rebuild fits at the current capacity
+            rows = max(self._rebuild_rows, self.capacity_rows)
+            tree = self._run_update("delete", self._tree, pts, mask,
+                                    extra=dict(capacity_rows=rows))
+            return self._wrap(tree, rebuild_rows=rows)
         return self._wrap(self._run_update("delete", self._tree, pts, mask))
 
     delete_unchecked = delete   # deletes cannot overflow rows
@@ -363,7 +458,8 @@ def make_index(kind: str, points, mask=None, *, phi: int = 32,
     live points (default ``len(points)``); ``capacity_rows`` overrides
     the heuristic. Backend options (``curve``, ``bits``, ``coord_bits``,
     ``sort_rows`` for the spac family; ``root_lo``, ``root_hi``, ``lam``,
-    ``rounds`` for porth; ``max_overflow_rows`` for both) pass through as
+    ``rounds`` for porth; ``max_overflow_rows`` for both; ``max_depth``
+    for kd; ``bits``, ``coord_bits`` and ``lam`` for zd) pass through as
     keywords.
     ``donate=True`` marks a handle whose caller drops old versions after
     each update; :class:`repro_torch.serving.SpatialServer` refuses it.
@@ -392,7 +488,10 @@ def make_index(kind: str, points, mask=None, *, phi: int = 32,
     for _ in range(8):
         tree = backend.build(pts, pts_mask, phi=phi, capacity_rows=cap,
                              **build_kw)
-        if not bool(tree.overflowed) and int(tree.size) == expected:
+        # rebuild backends have no overflow flag and drop silently; the
+        # size check catches both
+        if (not bool(getattr(tree, "overflowed", False))
+                and int(tree.size) == expected):
             break
         # jump at least to the heuristic (explicit caps can be tiny),
         # then keep doubling
@@ -400,4 +499,6 @@ def make_index(kind: str, points, mask=None, *, phi: int = 32,
     else:
         raise RuntimeError(f"{kind}: build of {expected} points overflows "
                            f"even at capacity_rows={cap}")
-    return SpatialIndex(kind, tree, phi=phi, params=resolved, donate=donate)
+    return SpatialIndex(kind, tree, phi=phi, params=resolved, donate=donate,
+                        size_hint=expected,
+                        rebuild_rows=0 if backend.dynamic else cap)

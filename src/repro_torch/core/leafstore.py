@@ -95,14 +95,28 @@ def row_bbox_from_slots(pts, valid):
     return bbox_kernel.row_bbox(pts, valid)
 
 
+def run_first(change):
+    """Index of the first element of each element's run, where ``change``
+    marks the run starts (``change[0]`` set) -- ``cummax(where(change,
+    idx, 0))`` -- by one scatter and one gather: a run start writes its
+    index at its run id, every other element into a slot of its own past
+    ``n``. (torch's cummax runs a scan-with-indices kernel that is slow
+    on CUDA.) int32."""
+    n = change.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=change.device)
+    run = torch.cumsum(change, 0) - 1
+    first = torch.empty(2 * n, dtype=torch.int32, device=change.device)
+    first.scatter_(0, torch.where(change, run, n + idx.long()), idx)
+    return first[run]
+
+
 def group_occurrence(group_ids):
     """Occurrence index of each element within its (contiguous) run."""
     n = group_ids.shape[0]
     idx = torch.arange(n, dtype=torch.int32, device=group_ids.device)
     change = torch.ones(n, dtype=torch.bool, device=group_ids.device)
     change[1:] = group_ids[1:] != group_ids[:-1]
-    run_first = torch.cummax(torch.where(change, idx, 0), dim=0).values
-    return idx - run_first
+    return idx - run_first(change)
 
 
 def append_unsorted(pts_rows, valid_rows, count, row_of, new_pts, new_mask,

@@ -37,8 +37,8 @@ from ..kernels.sieve import ref as sieve_ref
 from ..kernels.sieve.ref import midpoint as _midpoint
 from .leafstore import (_add_drop, _big_for, _set_rows_drop,
                         append_unsorted, compact_rows, ranked_delete,
-                        row_bbox_from_slots, scatter_to_rows, segment_bbox,
-                        take_k_where)
+                        row_bbox_from_slots, run_first, scatter_to_rows,
+                        segment_bbox, take_k_where)
 from .queries import LeafView
 
 KEY_MAX = 0xFFFFFFFF
@@ -153,8 +153,7 @@ def _group_stats(sorted_key, ok):
     gid = torch.cumsum(change, 0, dtype=torch.int32) - 1
     per_gid = torch.zeros(n, dtype=torch.int32, device=dev)
     per_gid.index_add_(0, gid.long(), ok.int())
-    gstart = torch.cummax(torch.where(change, idx, 0), dim=0).values
-    return gid, per_gid[gid.long()], idx - gstart
+    return gid, per_gid[gid.long()], idx - run_first(change)
 
 
 def _gather(perm, *arrays):

@@ -29,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..kernels.morton import kernel as morton_kernel
 from . import sfc
 from .leafstore import (_add_drop, _reduce_drop, append_unsorted,
                         chunk_rows_from_sorted, compact_rows,
@@ -117,12 +118,15 @@ class SpacTree:
 
 def _encode(pts, curve: str, bits: int, coord_bits: int):
     """Quantize coordinates to ``bits``/dim and encode (quantization only
-    affects clustering order, never correctness)."""
-    q = sfc._as_code(pts) >> max(0, coord_bits - bits)
+    affects clustering order, never correctness). The Morton curve goes
+    through the Morton op: the kernel on the card, its plain version on
+    the CPU."""
     if curve == "hilbert":
+        q = sfc._as_code(pts) >> max(0, coord_bits - bits)
         return sfc.hilbert_encode(q, bits)
     if curve == "morton":
-        return sfc.morton_encode(q, bits)
+        return morton_kernel.morton_encode(pts, bits=bits,
+                                           coord_bits=coord_bits)
     raise ValueError(f"unknown curve {curve!r}")
 
 

@@ -26,7 +26,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 
 SOURCES = {"knn_flat": "knn_flat.cu", "knn_frontier": "knn_frontier.cu",
-           "row_bbox": "row_bbox.cu", "sieve": "sieve.cu"}
+           "morton": "morton.cu", "row_bbox": "row_bbox.cu",
+           "sieve": "sieve.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",

@@ -44,20 +44,25 @@ def _mark(index: SpatialIndex):
     host memory and a CUDA event recorded after it, so waiting on the
     event and reading the copy waits for this version only (a plain
     host read of the flag would wait for everything queued after it).
-    None on the CPU, where every op has finished when it returns."""
-    if index.device.type != "cuda":
+    None on the CPU, where every op has finished when it returns, and
+    for a tree without the flag (the rebuild baselines kd and zd, whose
+    updates are checked synchronously by the facade)."""
+    flag_dev = getattr(index.tree, "overflowed", None)
+    if flag_dev is None or index.device.type != "cuda":
         return None
     flag = torch.empty((), dtype=torch.bool, pin_memory=True)
-    flag.copy_(index.tree.overflowed, non_blocking=True)
+    flag.copy_(flag_dev, non_blocking=True)
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(index.device))
     return event, flag
 
 
 def _overflowed(index: SpatialIndex, mark) -> bool:
-    """Wait for the version behind ``mark`` and read its sticky flag."""
+    """Wait for the version behind ``mark`` and read its sticky flag (a
+    tree without the flag never overflows)."""
     if mark is None:
-        return bool(index.tree.overflowed)
+        flag = getattr(index.tree, "overflowed", None)
+        return flag is not None and bool(flag)
     event, flag = mark
     event.synchronize()
     return bool(flag)

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (bit-equal), the engine's ``auto``
-routes through the kernels, a P-Orth tree built and updated on the card
-equal to the same tree on the CPU, and a sync-free ``server.insert``.
+routes through the kernels, P-Orth, kd, Zd and spac-z trees built and
+updated on the card equal to the same trees on the CPU, and a sync-free
+``server.insert``.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false (the decision is made in a
@@ -17,11 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import make_index, porth
+from repro_torch.core import baselines, make_index, porth, spac
 from repro_torch.kernels.bbox import kernel as bk
 from repro_torch.kernels.frontier import kernel as fk
 from repro_torch.kernels.frontier import prep
 from repro_torch.kernels.knn import kernel as kk
+from repro_torch.kernels.morton import kernel as mk
 from repro_torch.kernels.sieve import kernel as sk
 from repro_torch.kernels.sieve import ops as sieve_ops
 from repro_torch.kernels.sieve import ref as sieve_ref
@@ -199,6 +201,77 @@ def test_row_bbox_kernel_unaligned_flags(cuda):
     _equal(bk.row_bbox(p, v), bk.row_bbox_plain(p, v))
 
 
+@pytest.mark.parametrize("n", [1, 1023, 1025, 1_000_000])
+@pytest.mark.parametrize("dim,bits,coord_bits,hi_bits", [
+    (2, 15, 20, 20), (2, 16, 30, 30), (3, 10, 20, 20), (3, 10, 30, 30),
+    (2, 15, 20, 24), (3, 10, 20, 27), (2, 16, 10, 31), (1, 20, 20, 20),
+    (4, 8, 20, 20)])
+def test_morton_kernel_bit_equal(cuda, n, dim, bits, coord_bits, hi_bits):
+    """The kernel against its plain version: 2D and 3D (the magic-mask
+    spreads), 1D and 4D (the bit loop), coordinates at or above 2^bits
+    after the shift, N of one point, around a 1024 block and 10^6."""
+    rng = np.random.default_rng(n * 10 + dim)
+    p = torch.as_tensor(rng.integers(0, 1 << hi_bits, (n, dim)),
+                        dtype=torch.int32, device=cuda)
+    before = mk.launch_count()
+    got = mk.morton_encode(p, bits=bits, coord_bits=coord_bits)
+    assert mk.launch_count() == before + 1
+    want = mk.morton_encode_plain(p, bits=bits, coord_bits=coord_bits)
+    _equal((got,), (want,))
+    _equal((got.cpu(),), (mk.morton_encode_plain(p.cpu(), bits=bits,
+                                                 coord_bits=coord_bits),))
+
+
+def test_morton_kernel_casts_and_unaligned_rows(cuda):
+    """Float32, int64 and negative int32 points take the plain version's
+    cast; a 2D view that starts off an 8-byte boundary takes the scalar
+    loads."""
+    rng = np.random.default_rng(3)
+    cases = [
+        torch.as_tensor(rng.random((5000, 2)) * (1 << 20),
+                        dtype=torch.float32, device=cuda),
+        torch.as_tensor(rng.integers(0, 1 << 20, (5000, 3)),
+                        dtype=torch.int64, device=cuda),
+        torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (5000, 2)),
+                        dtype=torch.int32, device=cuda)]
+    flat = torch.as_tensor(rng.integers(0, 1 << 20, 2 * 5000 + 1),
+                           dtype=torch.int32, device=cuda)
+    view = flat[1:].view(5000, 2)
+    assert view.data_ptr() % 8 != 0
+    cases.append(view)
+    for p in cases:
+        bits = 10 if p.shape[1] == 3 else 16
+        _equal((mk.morton_encode(p, bits=bits, coord_bits=20),),
+               (mk.morton_encode_plain(p, bits=bits, coord_bits=20),))
+    empty = mk.morton_encode(torch.zeros((0, 2), dtype=torch.int32,
+                                         device=cuda), bits=16,
+                             coord_bits=20)
+    assert empty.shape == (0,) and empty.dtype == torch.int64
+
+
+@pytest.mark.parametrize("kind,params,fields", [
+    ("kd", dict(max_depth=24), baselines.FIELDS),
+    ("zd", dict(bits=15, coord_bits=20, lam=3), baselines.FIELDS),
+    ("spac-z", dict(coord_bits=20), spac.FIELDS)])
+def test_trees_on_card_equal_cpu(cuda, kind, params, fields):
+    """kd, zd and spac-z through the facade on the card (zd's and
+    spac-z's encodes on the Morton kernel) equal the same trees on the
+    CPU, field for field, after the build, a delete and an insert."""
+    rng = np.random.default_rng(7)
+    pts = rng.integers(0, 1 << 20, (40_000, 2)).astype(np.int32)
+    new = rng.integers(0, 1 << 20, (4000, 2)).astype(np.int32)
+    morton0 = mk.launch_count()
+    gpu = make_index(kind, pts, **params)
+    cpu = make_index(kind, pts, device="cpu", **params)
+    assert (mk.launch_count() > morton0) == (kind != "kd")
+    gpu = gpu.delete(pts[:4000]).insert(new)
+    cpu = cpu.delete(pts[:4000]).insert(new)
+    got, want = gpu.tree.to_numpy(), cpu.tree.to_numpy()
+    for f in fields:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    assert len(gpu) == 40_000
+
+
 def test_porth_on_card_equals_cpu(cuda):
     """The P-Orth tree through the facade on the card (sieve and bbox
     kernels) equals the same tree on the CPU (plain versions), field for
@@ -219,7 +292,10 @@ def test_porth_on_card_equals_cpu(cuda):
     assert len(gpu) == 40_000
 
 
-@pytest.mark.parametrize("kind", ["spac-h", "porth"])
+# Dynamic kinds only: kd and zd inserts rebuild and then check the
+# rebuilt size on the host (the facade's retry rule), so they sync by
+# design, as in the reference.
+@pytest.mark.parametrize("kind", ["spac-h", "spac-z", "porth"])
 def test_server_insert_does_not_sync(cuda, kind):
     rng = np.random.default_rng(3)
     pts = rng.integers(0, 1 << 20, (50_000, 2)).astype(np.int32)

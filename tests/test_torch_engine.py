@@ -20,7 +20,7 @@ torch.set_num_threads(1)
 PHI = 8
 N, Q, K = 700, 16, 5
 COORD_HI = 1 << 10
-KINDS = ("spac-h", "spac-z", "cpam-h", "porth")
+KINDS = ("spac-h", "spac-z", "cpam-h", "porth", "kd", "zd")
 
 
 def _tie_free_data(n: int, q: int, k: int):

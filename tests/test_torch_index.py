@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from repro.core import index as jindex
-from repro_torch.core import BACKENDS, index, make_index, porth, spac
+from repro_torch.core import (BACKENDS, baselines, get_backend, index,
+                              make_index, porth, spac)
 
 torch.set_num_threads(1)
 
@@ -21,6 +22,8 @@ PTS = RNG.integers(0, 1 << 20, size=(600, 2)).astype(np.int32)
 
 
 def _fields(kind: str) -> tuple:
+    if kind in ("kd", "zd"):
+        return baselines.FIELDS
     return porth.FIELDS if kind == "porth" else spac.FIELDS
 
 
@@ -33,8 +36,9 @@ def assert_same_tree(idx, ref_idx):
 
 
 def test_registry_and_errors():
-    assert sorted(BACKENDS) == ["cpam-h", "cpam-z", "porth", "spac-h",
-                                "spac-m", "spac-z"]
+    assert sorted(BACKENDS) == sorted(jindex.BACKENDS) == [
+        "cpam-h", "cpam-z", "kd", "porth", "spac-h", "spac-m", "spac-z",
+        "zd"]
     with pytest.raises(KeyError, match="registered"):
         make_index("octree", PTS, device="cpu")
     with pytest.raises(TypeError, match="unknown params"):
@@ -43,15 +47,15 @@ def test_registry_and_errors():
         make_index("spac-h", PTS, device="cpu", mesh=object())
 
 
-@pytest.mark.parametrize("kind,ported", [("kd", False), ("zd", False),
+@pytest.mark.parametrize("kind,dynamic", [("kd", False), ("zd", False),
                                          ("porth", True)])
-def test_kinds_not_ported_yet_raise(kind, ported):
-    """kd and zd raise "not ported yet"; porth builds."""
-    if ported:
-        assert len(make_index(kind, PTS, phi=PHI, device="cpu")) == 600
-    else:
-        with pytest.raises(KeyError, match="not ported yet"):
-            make_index(kind, PTS, device="cpu")
+def test_kinds_not_ported_yet_raise(kind, dynamic):
+    """The kinds the earlier slices left out are ported now (the name is
+    kept from then): kd and zd build as rebuild backends, porth as a
+    dynamic one, each with the reference backend's update style."""
+    assert get_backend(kind).dynamic is dynamic
+    assert jindex.get_backend(kind).dynamic is dynamic
+    assert len(make_index(kind, PTS, phi=PHI, device="cpu")) == 600
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 10_000, 10 ** 7])

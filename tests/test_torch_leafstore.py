@@ -81,6 +81,21 @@ def test_group_occurrence():
         jls.group_occurrence(jnp.asarray(ids)))
 
 
+@pytest.mark.parametrize("n", [0, 1, 2, 1000])
+def test_run_first_matches_cummax(n):
+    """The scatter formulation equals the reference's associative-scan
+    maximum over ``where(change, idx, 0)``."""
+    rng = np.random.default_rng(n)
+    change = rng.random(n) < 0.1
+    if n:
+        change[0] = True
+    idx = np.arange(n, dtype=np.int32)
+    want = np.maximum.accumulate(np.where(change, idx, 0)) if n else idx
+    got = ls.run_first(torch.as_tensor(change))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_append_unsorted():
     rng = np.random.default_rng(4)
     pts, valid = _rows(rng)

@@ -30,7 +30,7 @@ BOX_HI = BOX_LO + np.int32(HI // 3)
 
 
 def _server(kind: str, **kw) -> SpatialServer:
-    if kind != "porth":      # the spac family's code width (porth has none)
+    if kind.startswith(("spac", "cpam")):   # the spac family's code width
         kw["coord_bits"] = 20
     return SpatialServer.build(kind, PTS, phi=PHI, capacity_points=2 * N,
                                device="cpu", **kw)
