@@ -9,7 +9,20 @@ Phases, each printed as one JSON line (``"phase": ...``):
              on its own line too).
 2. build  -- compiles every CUDA kernel from ``src/repro_torch/csrc`` with
              nvcc, one process per source, all started together.
-3. main   -- the serving loop at a deployment's size: ``SpatialServer``
+3. lm     -- the LM serving path at full width and depth: qwen1.5-0.5b
+             (24 layers, d_model 1024, 16 heads of 64, vocab 151,936),
+             bf16 weights from a seeded generator, through
+             ``ServeEngine.generate``: 1 warm-up and 3 measured generates
+             of 8 prompts of 2048 tokens and 128 greedy new tokens
+             (max_len 2176), each under sync debug mode "error". Every
+             forward must launch the flash-attention kernel once a layer
+             (24 a forward, 24 x 128 a generate). Prefill ms, decode ms
+             a token (p50, p99), tokens/s, peak memory; an f32 rerun of
+             the same weights (B=2, P=256, 32 new tokens) must agree with
+             the argmax of the teacher-forced forward at >= 99% of
+             positions (``examples/serve_lm.py``'s bar); one prefill and
+             one decode step under ``torch.profiler``.
+4. main   -- the serving loop at a deployment's size: ``SpatialServer``
              over a SPaC-tree (``spac-h``, phi=32, version window 4) of
              10^7 uniform 2D int32 points in [0, 2^20), then 1 warm-up
              and 4 measured steps of the uniform stream in the
@@ -19,41 +32,48 @@ Phases, each printed as one JSON line (``"phase": ...``):
              against the snapshot; commit). ``impl="auto"`` must route
              kNN to the frontier kernel, and it and the row-bbox kernel
              (on the deletes) must launch.
-4. check  -- for 256 sampled queries of the last step, kNN distances
+5. check  -- for 256 sampled queries of the last step, kNN distances
              equal a brute-force direct-form f32 scan over the
              snapshot's live points bit for bit, and range counts equal
              an int64 brute-force count.
-5. porth  -- the same loop, trace and traffic over a P-Orth tree
+6. porth  -- the same loop, trace and traffic over a P-Orth tree
              (``porth``, phi=32, lam=3, 5 rounds, window 4): the sieve
              kernel must launch on the build and on the inserts, the
              row-bbox kernel on the deletes, the frontier kernel on kNN;
-             checked as in 4.
-6. kd     -- the same loop, trace and traffic over the kd-tree baseline
+             checked as in 5.
+7. kd     -- the same loop, trace and traffic over the kd-tree baseline
              (``kd``, phi=32, max_depth=24): every update is a full
              rebuild checked on the host, so its inserts do not run under
              sync debug mode "error"; the frontier kernel must launch on
-             kNN; checked as in 4.
-7. zd     -- the same over the Zd-tree baseline (``zd``, phi=32, bits=15,
+             kNN; checked as in 5.
+8. zd     -- the same over the Zd-tree baseline (``zd``, phi=32, bits=15,
              coord_bits=20, lam=3): the Morton kernel must launch on the
              build and on every delete and insert (each a rebuild), the
-             frontier kernel on kNN; checked as in 4. Then one zd build
+             frontier kernel on kNN; checked as in 5. Then one zd build
              and one porth build of the bootstrap at the same row
              capacity, timed side by side (the paper's encode-and-sort
              against the sieve).
-8. flat   -- a small index (n = 2048, so R*C <= 2^15) through the same
+9. flat   -- a small index (n = 2048, so R*C <= 2^15) through the same
              server pattern, where ``auto`` takes the flat kernel; it must
              launch, and its answers are checked the same way.
-9. spac-z -- one ``spac-z`` build of 10^6 points and one insert (under
+10. spac-z -- one ``spac-z`` build of 10^6 points and one insert (under
              sync debug mode "error"): the Morton kernel must launch on
              both.
-10. kernels -- each kernel at the shapes its path gave it, against its
+11. kernels -- each kernel at the shapes its path gave it, against its
              plain PyTorch version on the same inputs (bit-equal), with
              its time, the plain version's time and its bound: the
              frontier kernel on main's last batch and on 4 query blocks
              of porth's, row-bbox on the porth and main trees, the sieve
              on porth's first build round, the Morton kernel on zd's
-             build input and on spac-z's.
-11. sync  -- every dynamic kind's ``server.insert`` above ran under
+             build input and on spac-z's, the flash-attention kernel on
+             the lm phase's own layer-0 inputs (one prefill, and the
+             decode step at 2175 kv slots through the cache's prefix
+             view) and on yi-9b's GQA and h2o-danube-1.8b's window shapes,
+             each in bf16 (the path's type; 1e-2 relative, about one bf16
+             ulp, and 1e-4 absolute) and on f32 copies of the same inputs
+             (2e-5), with ``scaled_dot_product_attention`` timed beside
+             it as the library yardstick.
+12. sync -- every dynamic kind's ``server.insert`` above ran under
              ``torch.cuda.set_sync_debug_mode("error")``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -77,12 +97,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import (baselines, make_index, porth,  # noqa: E402
                               queries)
 from repro_torch.data import points as gen  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bbox import kernel as bk  # noqa: E402
+from repro_torch.kernels.flash_attn import kernel as fak  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import attention_plain  # noqa: E402
 from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
 from repro_torch.kernels.frontier import prep, tuning  # noqa: E402
 from repro_torch.kernels.knn import kernel as kk  # noqa: E402
@@ -90,6 +114,8 @@ from repro_torch.kernels.morton import kernel as mk  # noqa: E402
 from repro_torch.kernels.sieve import kernel as sk  # noqa: E402
 from repro_torch.kernels.sieve import ops as sieve_ops  # noqa: E402
 from repro_torch.kernels.sieve import ref as sieve_ref  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serving import (LatencyRecorder, MicroBatcher,  # noqa: E402
                                  SpatialServer)
 
@@ -121,6 +147,27 @@ SIEVE_OPS_PER_LEVEL_DIM = 4
 # per point and dimension the Morton encode takes the quantizing shift, a
 # mask, four rounds of shift, or and and, and the combining shift and or
 MORTON_OPS_PER_DIM = 16
+# the LM path: qwen1.5-0.5b at full width and depth, 8 prompts of 2048
+# tokens and 128 greedy new tokens (a ~1.7 GB bf16 KV cache)
+LM_ARCH = "qwen1.5-0.5b"
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 2048, 128
+LM_MAX_LEN = LM_PROMPT + LM_NEW
+LM_WARMUP, LM_REPS = 1, 3
+# the f32 rerun of the same weights, held to examples/serve_lm.py's bar
+LM_F32_BATCH, LM_F32_PROMPT, LM_F32_NEW = 2, 256, 32
+LM_AGREE = 0.99
+# the bf16 tensor-core peak (dense), the rate attention's products need
+BF16_TC_OPS_PER_S = 989e12
+# the kernel's other features at their archs' widths (B, Hq, Hkv, S, d,
+# window): yi-9b's grouped-query heads, h2o-danube-1.8b's sliding window
+ATTN_EXTRA = {"at_yi_gqa": (1, 32, 4, 4096, 128, None),
+              "at_danube_window": (1, 32, 8, 8192, 80, 4096)}
+# kernel against plain version: both compute in f32 and round once to the
+# output's type, so in bf16 they differ by at most one bf16 ulp (2^-7 of
+# the value at most); |out| is ~0.03 at the path's shapes, so a bar near
+# that size would pass a wrong kernel
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+            torch.bfloat16: dict(atol=1e-4, rtol=1e-2)}
 
 
 class SmokeFailure(AssertionError):
@@ -156,7 +203,7 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 KERNELS = {"knn_flat": kk, "knn_frontier": fk, "row_bbox": bk, "sieve": sk,
-           "morton": mk}
+           "morton": mk, "flash_attn": fak}
 
 
 def reset_counts() -> None:
@@ -345,11 +392,13 @@ def brute_check(name: str, run: dict, n_check: int, dev) -> dict:
 # kernels against their plain versions, with bounds
 # ---------------------------------------------------------------------------
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str, dict]:
+def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S,
+          ops_kind: str = "fp32") -> tuple[float, str, dict]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     how = {"bytes": bytes_moved, "ops": ops,
-           "formula": "max(bytes / 3.35e12 B/s, ops / 67e12 fp32 op/s)"}
+           "formula": f"max(bytes / 3.35e12 B/s, ops / {ops_per_s:.4g} "
+                      f"{ops_kind} op/s)"}
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), how
 
@@ -807,6 +856,327 @@ def spacz_morton(dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# the LM serving path and the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def patched(obj, name: str, fn):
+    """``obj.name = fn`` inside the block."""
+    old = getattr(obj, name)
+    setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+class LMProbe:
+    """Wraps ``transformer.prefill`` and ``transformer.decode_step`` where
+    the engine calls them: CUDA events around each call (no host read),
+    the flash-attention launches of each forward, and, for the last
+    generate, the inputs of layer 0's attention in the prefill and in the
+    decode step that starts at cache length ``capture_len``."""
+
+    def __init__(self, capture_len: int):
+        self.events = {"prefill": [], "decode": []}
+        self.launches = {"prefill": [], "decode": []}
+        self.capture = False
+        self.capture_len = capture_len
+        self.captured = {}
+        self._slot = None
+
+    def attention(self, orig):
+        def run(q, k, v, **kw):
+            if self._slot is not None:
+                self.captured[self._slot] = (q, k, v, kw)
+                self._slot = None
+            return orig(q, k, v, **kw)
+        return run
+
+    def forward(self, orig, phase: str):
+        def run(model, *args):
+            if self.capture and (phase == "prefill"
+                                 or args[0]["len"] == self.capture_len):
+                self._slot = phase
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            before = fak.launch_count()
+            start.record()
+            out = orig(model, *args)
+            end.record()
+            self.events[phase].append((start, end))
+            self.launches[phase].append(fak.launch_count() - before)
+            return out
+        return run
+
+
+def lm_phase(dev) -> tuple[dict, dict]:
+    """qwen1.5-0.5b at full width and depth, bf16, seeded random weights,
+    through ``ServeEngine.generate``: 1 warm-up and 3 measured generates
+    of 8 x 2048 prompt tokens and 128 greedy new tokens, each under sync
+    debug mode "error". Every forward must launch the flash-attention
+    kernel once a layer. Then an f32 rerun of the same weights must meet
+    ``examples/serve_lm.py``'s bar (greedy decode agrees with the argmax
+    of the teacher-forced forward at >= 99% of positions), and one
+    prefill and one decode step are profiled. Returns the phase's line
+    and the kernel's row."""
+    cfg = configs.ARCHS[LM_ARCH]
+    L = cfg.n_layers
+    # f32 products in full f32 (PyTorch's default, stated for the rerun)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = transformer.DecoderLM(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED))
+    sync()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 19)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH,
+                                                          LM_PROMPT)),
+                              device=dev)
+    sync()
+    engine = ServeEngine(cfg, model, LM_MAX_LEN)
+    probe = LMProbe(LM_PROMPT + LM_NEW - 2)
+    runs = LM_WARMUP + LM_REPS
+    outs, gen_s = [], []
+    reset_counts()
+    with patched(transformer, "prefill",
+                 probe.forward(transformer.prefill, "prefill")), \
+            patched(transformer, "decode_step",
+                    probe.forward(transformer.decode_step, "decode")), \
+            patched(fak, "flash_attention",
+                    probe.attention(fak.flash_attention)):
+        for r in range(runs):
+            probe.capture = r == runs - 1
+            sync()
+            t1 = time.perf_counter()
+            with sync_debug_error():
+                out = engine.generate(prompts, LM_NEW)
+            sync()
+            if r >= LM_WARMUP:
+                gen_s.append(time.perf_counter() - t1)
+                outs.append(out)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = LM_NEW - 1
+    prefill_ms = [a.elapsed_time(b) for a, b in
+                  probe.events["prefill"][LM_WARMUP:]]
+    decode_ms = np.array([a.elapsed_time(b) for a, b in
+                          probe.events["decode"][LM_WARMUP * steps:]])
+    per_fwd = probe.launches["prefill"] + probe.launches["decode"]
+    check(len(probe.launches["prefill"]) == runs
+          and len(probe.launches["decode"]) == runs * steps,
+          "lm: the engine did not run one prefill and n_new - 1 decode "
+          "steps a generate")
+    check(all(n == L for n in per_fwd), f"lm: a forward launched the "
+          f"flash-attention kernel {sorted(set(per_fwd))} times, not {L}")
+    check(launches["flash_attn"] == runs * LM_NEW * L,
+          f"lm: {launches['flash_attn']} flash-attention launches, not "
+          f"{runs * LM_NEW * L}")
+    check(all(v == 0 for k, v in launches.items() if k != "flash_attn"),
+          f"lm: other kernels launched: {launches}")
+    last = outs[-1]
+    check(last.shape == (LM_BATCH, LM_NEW) and last.dtype == torch.int32
+          and bool(((last >= 0) & (last < cfg.vocab)).all()),
+          "lm: generated tokens out of shape or vocabulary")
+
+    # the f32 rerun of the same weights
+    cfg32 = cfg.with_(act_dtype="float32")
+    m32 = transformer.DecoderLM(cfg32, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    p32 = prompts[:LM_F32_BATCH, :LM_F32_PROMPT]
+    reset_counts()
+    out32 = ServeEngine(cfg32, m32, LM_F32_PROMPT + LM_F32_NEW).generate(
+        p32, LM_F32_NEW)
+    f32_launches = counts()["flash_attn"]
+    with torch.inference_mode():
+        logits = transformer.forward(m32, torch.cat([p32, out32.long()], 1))
+    ref = logits[:, LM_F32_PROMPT - 1:-1].argmax(-1)
+    agree = float((ref == out32).float().mean())
+    check(bool(torch.isfinite(logits).all()), "lm: f32 logits not finite")
+    del m32, logits
+    check(f32_launches == LM_F32_NEW * L, f"lm: the f32 rerun launched the "
+          f"kernel {f32_launches} times")
+    check(agree >= LM_AGREE, f"lm: f32 greedy decode agrees with the "
+          f"teacher-forced forward at {agree:.4f} of positions")
+
+    # one prefill and one decode step under the profiler (not counted)
+    with torch.inference_mode():
+        prof_prefill = device_ops(
+            lambda: transformer.prefill(model, prompts, LM_MAX_LEN), top=8)
+        lg, cache = transformer.prefill(model, prompts, LM_MAX_LEN)
+        check(bool(torch.isfinite(lg).all()), "lm: prefill logits not finite")
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        prof_decode = device_ops(
+            lambda: transformer.decode_step(model, cache, tok), top=8)
+    del cache, lg
+    kv_bytes = 2 * L * LM_BATCH * cfg.n_kv_heads * LM_MAX_LEN * cfg.hd * 2
+    out = {"phase": "lm", "arch": LM_ARCH, "dtype": cfg.act_dtype,
+           "params": transformer.param_count(model),
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
+           "max_len": LM_MAX_LEN, "warmup": LM_WARMUP, "reps": LM_REPS,
+           "init_s": init_s,
+           "prefill_ms": float(np.mean(prefill_ms)),
+           "prefill_ms_each": prefill_ms,
+           "decode_ms_per_token": {
+               "p50": float(np.percentile(decode_ms, 50)),
+               "p99": float(np.percentile(decode_ms, 99)),
+               "mean": float(decode_ms.mean()), "count": int(decode_ms.size)},
+           "generate_s_each": gen_s,
+           "tokens_per_s": LM_BATCH * LM_NEW / float(np.mean(gen_s)),
+           "peak_allocated_bytes": peak, "allocated_before_bytes": base,
+           "kv_cache_bytes": kv_bytes,
+           "flash_attn_launches": {
+               "per_generate": {"prefill": L, "decode": steps * L},
+               "total": launches["flash_attn"], "runs": runs},
+           "launches": launches,
+           "repeat_tokens_equal": all(bool(torch.equal(o, last))
+                                      for o in outs),
+           "generates_under_sync_debug_error": runs,
+           "f32_rerun": {"batch": LM_F32_BATCH, "prompt": LM_F32_PROMPT,
+                         "new": LM_F32_NEW, "agreement": agree,
+                         "bar": LM_AGREE, "launches": f32_launches},
+           "profile_prefill": prof_prefill, "profile_decode": prof_decode}
+    row = flash_attn_kernel_row(probe.captured, {
+        "lm": launches["flash_attn"],
+        "lm_prefill": sum(probe.launches["prefill"]),
+        "lm_decode": sum(probe.launches["decode"]),
+        "lm_f32_rerun": f32_launches}, dev)
+    del probe, model, engine, outs
+    free()
+    return out, row
+
+
+def attn_pairs(Sq: int, Skv: int, causal: bool, window, q_offset: int) -> int:
+    """(query, kv) pairs the masks leave visible, with kv at positions
+    0..Skv-1 and queries at q_offset..q_offset+Sq-1."""
+    qp = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(Skv - 1, qp) if causal else np.full(Sq, Skv - 1)
+    lo = (np.maximum(0, qp - window + 1) if window is not None
+          else np.zeros(Sq, np.int64))
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def attn_compare(q, k, v, kw: dict) -> dict:
+    """The kernel against its plain version on (q, k, v) at the
+    tolerance of their dtype: the largest error, the largest share of
+    the allowed error (<= 1 passes) and the mean |output|."""
+    got = fak.flash_attention(q, k, v, **kw).float()
+    want = attention_plain(q, k, v, **kw).float()
+    tol = ATTN_TOL[q.dtype]
+    diff = (got - want).abs()
+    share = float((diff / (tol["atol"] + tol["rtol"] * want.abs())).max())
+    return {"max_abs_err": float(diff.max()), "tolerance_share": share,
+            "all_close": share <= 1.0, "tolerance": tol,
+            "mean_abs_out": float(want.abs().mean())}
+
+
+def f32_copy(t):
+    """``t`` in f32 with ``t``'s own strides (a prefix view stays one)."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=torch.float32,
+                               device=t.device).copy_(t)
+
+
+def attn_at(q, k, v, kw: dict, library) -> dict:
+    """The flash-attention kernel on (q, k, v) against its plain version,
+    in their dtype and on f32 copies of them (``attn_compare``);
+    ``library`` is one ``scaled_dot_product_attention`` call of the same
+    function, timed beside it. The bound counts q, k, v read once and the
+    output written once over 3.35 TB/s, and 4 d operations per visible
+    (query, kv) pair over the bf16 tensor-core peak."""
+    cmp = attn_compare(q, k, v, kw)
+    cmp32 = attn_compare(f32_copy(q), f32_copy(k), f32_copy(v), kw)
+    want = attention_plain(q, k, v, **kw)
+    lib_err = float((library().float() - want.float()).abs().max())
+    del want
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    ms = time_ms(lambda: fak.flash_attention(q, k, v, **kw), reps=10)
+    plain_ms = time_ms(lambda: attention_plain(q, k, v, **kw), reps=2)
+    library_ms = time_ms(library, reps=10)
+    pairs = attn_pairs(Sq, Skv, kw["causal"], kw.get("window"),
+                       kw["q_offset"])
+    bytes_moved = (2 * B * Hq * Sq * d + 2 * B * Hkv * Skv * d) * \
+        q.element_size()
+    ops = 4 * B * Hq * d * pairs
+    b_ms, by, how = bound(bytes_moved, ops, BF16_TC_OPS_PER_S,
+                          "bf16 tensor-core")
+    return {**cmp, "all_close": cmp["all_close"] and cmp32["all_close"],
+            "f32_copy": cmp32, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms,
+            "library_max_abs_err": lib_err,
+            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Skv": Skv,
+                      "d": d, "dtype": str(q.dtype),
+                      "causal": kw["causal"], "window": kw.get("window"),
+                      "q_offset": kw["q_offset"], "visible_pairs": pairs,
+                      "q_contiguous": q.is_contiguous(),
+                      "k_contiguous": k.is_contiguous()},
+            "bound_terms": how}
+
+
+def window_mask(S: int, window: int, dev):
+    pos = torch.arange(S, device=dev)
+    return (pos[None, :] <= pos[:, None]) & (pos[None, :] >
+                                             pos[:, None] - window)
+
+
+def flash_attn_kernel_row(captured: dict, launches: dict, dev) -> dict:
+    """The kernel at the LM path's own inputs (layer 0 of one prefill,
+    and of the decode step at Skv = 2175 through the cache's prefix
+    view), and at yi-9b's GQA and h2o-danube-1.8b's window shapes on
+    seeded inputs."""
+    check(set(captured) == {"prefill", "decode"},
+          f"lm: captured attention inputs {sorted(captured)}")
+    q, k, v, kw = captured["prefill"]
+    at_prefill = attn_at(q, k, v, kw, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    q, k, v, kw = captured["decode"]
+    check(k.shape[2] == LM_MAX_LEN - 1 and not k.is_contiguous(),
+          f"lm: decode attention got kv {tuple(k.shape)}, contiguous "
+          f"{k.is_contiguous()}")
+    at_decode = attn_at(q, k, v, kw, lambda: F.scaled_dot_product_attention(
+        q, k, v))
+    del q, k, v, captured["prefill"], captured["decode"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    extra = {}
+    for name, (B, Hq, Hkv, S, d, window) in ATTN_EXTRA.items():
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16) for shape in ((B, Hq, S, d), (B, Hkv, S, d),
+                                          (B, Hkv, S, d)))
+        kw = dict(causal=True, window=window, q_offset=0, k_pos=None)
+        mask = None if window is None else window_mask(S, window, dev)
+        extra[name] = attn_at(q, k, v, kw, lambda: (
+            F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           enable_gqa=True)
+            if mask is None else F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)))
+        del q, k, v, mask
+    cases = [at_prefill, at_decode, *extra.values()]
+    ok = all(c["all_close"] for c in cases)
+    check(ok, "flash_attn: kernel differs from its plain version beyond "
+          "the tolerance (share of the allowed error, bf16 / f32): "
+          + ", ".join(f"{c['tolerance_share']:.3g} / "
+                      f"{c['f32_copy']['tolerance_share']:.3g}"
+                      for c in cases))
+    return {"name": "flash_attn", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn/kernel.py:83",
+            "launches": launches["lm"], "launches_by_path": launches,
+            **at_prefill,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "f32_max_abs_err": max(c["f32_copy"]["max_abs_err"]
+                                   for c in cases),
+            "all_close": ok,
+            "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                            " (timed here only; the port never calls it)",
+            "at_decode": at_decode, **extra}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -828,6 +1198,9 @@ def main() -> int:
     report = build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: v["seconds"] for k, v in report.items()}})
+
+    lm, flash_row = lm_phase(dev)
+    emit(lm)
 
     main_run = run_server("main", "spac-h", N_MAIN, BATCH, STEPS, WARMUP,
                           dev, coord_bits=20)
@@ -904,7 +1277,8 @@ def main() -> int:
             frontier,
             row_bbox_kernel_row(porth_run, main_run, by_path("row_bbox")),
             sieve_kernel_row(porth_run, by_path("sieve"), dev),
-            morton_kernel_row(zd_run["boot"], spacz_pts, by_path("morton"))]
+            morton_kernel_row(zd_run["boot"], spacz_pts, by_path("morton")),
+            flash_row]
     for r in rows:
         emit({"phase": "kernel", **r})
     emit({"kernels": rows})

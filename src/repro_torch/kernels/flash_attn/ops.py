@@ -1,0 +1,10 @@
+"""The attention op, counterpart of ``repro/kernels/flash_attn/ops.py``:
+:func:`flash_attention` (the kernel for CUDA tensors, its plain version
+for CPU tensors) and :func:`attention_plain`."""
+
+from __future__ import annotations
+
+from .kernel import flash_attention
+from .ref import attention_plain
+
+__all__ = ["attention_plain", "flash_attention"]

@@ -1,8 +1,11 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version on the same CUDA tensors (bit-equal), the engine's ``auto``
-routes through the kernels, P-Orth, kd, Zd and spac-z trees built and
-updated on the card equal to the same trees on the CPU, and a sync-free
-``server.insert``.
+version on the same CUDA tensors (bit-equal; flash attention, whose
+softmax sums run in another order, at 2e-5 in f32 and, in bf16, at
+1e-2 relative (about one bf16 ulp) and 1e-4 absolute), the engine's
+``auto`` routes through the kernels, P-Orth, kd, Zd and spac-z trees
+built and updated on the card equal to the same trees on the CPU, a
+sync-free ``server.insert``, and a smoke LM on the card equal to the
+same weights on the CPU.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false (the decision is made in a
@@ -18,8 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import baselines, make_index, porth, spac
 from repro_torch.kernels.bbox import kernel as bk
+from repro_torch.kernels.flash_attn import kernel as fak
+from repro_torch.kernels.flash_attn.ref import attention_plain
 from repro_torch.kernels.frontier import kernel as fk
 from repro_torch.kernels.frontier import prep
 from repro_torch.kernels.knn import kernel as kk
@@ -27,6 +33,8 @@ from repro_torch.kernels.morton import kernel as mk
 from repro_torch.kernels.sieve import kernel as sk
 from repro_torch.kernels.sieve import ops as sieve_ops
 from repro_torch.kernels.sieve import ref as sieve_ref
+from repro_torch.models import transformer
+from repro_torch.serve import ServeEngine
 from repro_torch.serving import SpatialServer
 
 torch.set_num_threads(1)
@@ -312,3 +320,124 @@ def test_server_insert_does_not_sync(cuda, kind):
         torch.cuda.set_sync_debug_mode("default")
     srv.commit()
     assert len(srv.head_index) == 50_000 + 2 * 4096
+
+
+# -------------------------------------------------------------- attention
+
+# kernel against plain version: both compute in f32 and round once to the
+# output's type, so bf16 results differ by at most one bf16 ulp (2^-7 of
+# the value at most)
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+            torch.bfloat16: dict(atol=1e-4, rtol=1e-2)}
+
+
+def _attn_inputs(cuda, B, Hq, Hkv, Sq, Skv, d, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=cuda).to(dtype)
+            for s in ((B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d))]
+
+
+def _attn_close(got, want, dtype):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,d,causal,window", [
+    (2, 4, 4, 100, 100, 64, True, None),     # MHA, ragged tail block
+    (1, 8, 2, 64, 64, 128, True, None),      # GQA
+    (1, 4, 1, 3, 130, 80, True, None),       # MQA suffix (decode-ish)
+    (2, 4, 2, 150, 150, 80, True, 40),       # sliding window
+    (1, 2, 2, 33, 70, 64, False, None),      # non-causal, suffix
+    (1, 2, 1, 40, 40, 256, True, 16),        # widest head, window
+    (1, 2, 2, 20, 50, 30, True, None),       # d not a multiple of 4
+    (1, 2, 2, 4, 2, 16, True, None),         # fully masked rows
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, d,
+                                         causal, window, dtype):
+    q, k, v = _attn_inputs(cuda, B, Hq, Hkv, Sq, Skv, d, dtype)
+    before = fak.launch_count()
+    got = fak.flash_attention(q, k, v, causal=causal, window=window)
+    assert fak.launch_count() == before + 1
+    _attn_close(got, attention_plain(q, k, v, causal=causal,
+                                            window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_kernel_ring_positions(cuda, dtype):
+    """A ring cache's explicit kv positions (-1 = empty) and a query
+    offset, as attention_block gives them."""
+    W, off = 48, 100
+    q, k, v = _attn_inputs(cuda, 2, 8, 4, 5, W, 64, dtype, seed=1)
+    pos = torch.full((W,), -1, dtype=torch.int32, device=cuda)
+    live = torch.arange(off - W + 9, off + 5, device=cuda)
+    pos[live % W] = live.to(torch.int32)
+    for window in (W, 20):
+        got = fak.flash_attention(q, k, v, causal=True, window=window,
+                                  q_offset=off, k_pos=pos)
+        _attn_close(got, attention_plain(
+            q, k, v, causal=True, window=window, q_offset=off, k_pos=pos),
+            dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_kernel_strided_views(cuda, dtype):
+    """q from the transpose of a (B, S, H, d) projection and k/v as the
+    valid prefix of a longer cache go in without copies."""
+    B, H, S, d, cap, n = 2, 4, 7, 64, 96, 57
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((B, S, H, d), generator=g, device=cuda).to(dtype)
+    q = q.transpose(1, 2)
+    ck = torch.randn((3, B, H, cap, d), generator=g, device=cuda).to(dtype)
+    cv = torch.randn((3, B, H, cap, d), generator=g, device=cuda).to(dtype)
+    k, v = ck[1][:, :, :n], cv[1][:, :, :n]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    got = fak.flash_attention(q, k, v, causal=True, q_offset=n - S)
+    assert got.transpose(1, 2).is_contiguous()
+    _attn_close(got, attention_plain(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=True),
+        dtype)
+
+
+def test_flash_attn_wrapper_raises(cuda):
+    q, k, v = _attn_inputs(cuda, 1, 2, 2, 8, 8, 288, torch.float32)
+    with pytest.raises(ValueError, match="head dim 288"):
+        fak.flash_attention(q, k, v)
+    q, k, v = _attn_inputs(cuda, 1, 2, 2, 8, 8, 64, torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fak.flash_attention(q, k, v)
+    q, k, v = _attn_inputs(cuda, 1, 2, 2, 8, 8, 64, torch.float32)
+    with pytest.raises(ValueError, match="k_pos must be"):
+        fak.flash_attention(q, k, v, k_pos=torch.arange(8, device=cuda))
+    with pytest.raises(ValueError, match="k is on"):
+        fak.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="window"):
+        fak.flash_attention(q, k, v, window=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "h2o-danube-1.8b"])
+def test_smoke_lm_on_card_equals_cpu(cuda, arch):
+    """A smoke model built on the card (flash-attention kernel) and the
+    same weights on the CPU (plain version), f32: teacher-forced logits
+    agree to 1e-4 of their scale and greedy tokens are equal."""
+    cfg = configs.smoke(arch).with_(act_dtype="float32")
+    cpu = transformer.DecoderLM(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(3))
+    gpu = transformer.DecoderLM(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(4))
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab, (2, 40))
+    before = fak.launch_count()
+    got = transformer.forward(gpu, torch.as_tensor(toks, device=cuda))
+    assert fak.launch_count() == before + cfg.n_layers
+    want = transformer.forward(cpu, torch.as_tensor(toks))
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) / scale < 1e-4
+    P, n = 30, 10
+    out_gpu = ServeEngine(cfg, gpu, 48).generate(
+        torch.as_tensor(toks[:, :P], device=cuda), n)
+    out_cpu = ServeEngine(cfg, cpu, 48).generate(torch.as_tensor(
+        toks[:, :P]), n)
+    assert torch.equal(out_gpu.cpu(), out_cpu)

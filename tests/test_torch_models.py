@@ -1,0 +1,201 @@
+"""The port's LM layers and decoder against the JAX package's, at f32 on
+the same numpy inputs and weights: ``rms_norm``, ``rotary``,
+``swiglu_block``, ``attention_block`` in its three cache branches (none,
+ring, linear), and teacher-forced ``forward`` logits of the smoke
+configs of qwen1.5-0.5b (QKV bias, set nonzero here since both packages
+initialise it to 0), yi-9b (GQA) and h2o-danube-1.8b (sliding window),
+with the weights carried by ``load_reference_params``."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+from repro.models import layers as jlayers
+from repro.models import transformer as jT
+from repro_torch import configs
+from repro_torch.kernels.flash_attn import kernel as fk
+from repro_torch.models import layers, transformer
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _cfg(arch):
+    cfg = configs.smoke(arch).with_(act_dtype="float32")
+    return cfg, jconfigs.smoke(arch).with_(act_dtype="float32")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+# the reference's XLA knobs, which the port's ModelCfg does not carry
+XLA_FIELDS = {"attn_chunk_q", "attn_chunk_k", "attn_causal_prune",
+              "moe_group", "moe_shard_map", "loss_chunk", "remat",
+              "scan_layers"}
+
+
+def _same_cfg(cfg, jcfg):
+    """Every field the port keeps equal to the reference's, and the
+    reference's other fields exactly its XLA knobs."""
+    names = [f.name for f in dataclasses.fields(cfg)]
+    jnames = {f.name for f in dataclasses.fields(jcfg)}
+    assert set(names) <= jnames and jnames - set(names) == XLA_FIELDS
+    for name in names:
+        assert repr(getattr(cfg, name)) == repr(getattr(jcfg, name)), name
+
+
+def test_configs_are_the_reference_data():
+    assert list(configs.ARCHS) == list(jconfigs.ARCHS)
+    defaults = {f.name: f.default
+                for f in dataclasses.fields(type(jconfigs.ARCHS["yi-9b"]))}
+    for arch, cfg in configs.ARCHS.items():
+        jcfg = jconfigs.ARCHS[arch]
+        _same_cfg(cfg, jcfg)
+        # a published config leaves every XLA knob at its default
+        assert all(getattr(jcfg, n) == defaults[n] for n in XLA_FIELDS)
+        _same_cfg(configs.smoke(arch), jconfigs.smoke(arch))
+        assert configs.cells(arch) == jconfigs.cells(arch)
+    assert {k: repr(v) for k, v in configs.SHAPES.items()} == \
+        {k: repr(v) for k, v in jconfigs.SHAPES.items()}
+
+
+def test_rms_norm_and_rotary():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 12, 4, 32), dtype=np.float32)
+    scale = rng.standard_normal(32, dtype=np.float32)
+    pos = rng.integers(0, 5000, (2, 12)).astype(np.int32)
+    np.testing.assert_allclose(
+        layers.rms_norm(_t(x), _t(scale), 1e-5).numpy(),
+        np.asarray(jlayers.rms_norm(jnp.asarray(x), jnp.asarray(scale),
+                                    1e-5)), **TOL)
+    np.testing.assert_allclose(
+        layers.rotary(_t(x), torch.from_numpy(pos), 1e6).numpy(),
+        np.asarray(jlayers.rotary(jnp.asarray(x), jnp.asarray(pos), 1e6)),
+        **TOL)
+
+
+def test_swiglu_block():
+    cfg, jcfg = _cfg("qwen1.5-0.5b")
+    p = _np(jlayers.init_swiglu(jax.random.PRNGKey(1), jcfg, jnp.float32))
+    x = np.random.default_rng(1).standard_normal((2, 9, cfg.d_model),
+                                                 dtype=np.float32)
+    got = layers.swiglu_block(_t(x), {k: _t(v) for k, v in p.items()}, cfg)
+    want = jlayers.swiglu_block(jnp.asarray(x), p, jcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _attn_params(cfg, jcfg, seed):
+    p = _np(jlayers.init_attention(jax.random.PRNGKey(seed), jcfg,
+                                   jnp.float32))
+    rng = np.random.default_rng(seed)
+    for name in ("bq", "bk", "bv"):
+        if name in p:
+            p[name] = rng.standard_normal(p[name].shape,
+                                          dtype=np.float32) * 0.1
+    return p
+
+
+@pytest.mark.parametrize("arch,branch,S,L0", [
+    ("qwen1.5-0.5b", "none", 20, 0),
+    ("qwen1.5-0.5b", "linear", 7, 0),       # prefill into a linear cache
+    ("yi-9b", "linear", 1, 33),             # a decode step, GQA
+    ("h2o-danube-1.8b", "ring", 20, 0),     # ring prefill, S >= W
+    ("h2o-danube-1.8b", "ring", 1, 37),     # ring decode, S < W
+])
+def test_attention_block_cache_branches(arch, branch, S, L0):
+    cfg, jcfg = _cfg(arch)
+    if branch == "ring":
+        cfg, jcfg = cfg.with_(window=16), jcfg.with_(window=16)
+    p = _attn_params(cfg, jcfg, 2)
+    rng = np.random.default_rng(3)
+    B, W = 2, 16 if branch == "ring" else 48
+    x = rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
+    pos = np.broadcast_to(L0 + np.arange(S, dtype=np.int32), (B, S))
+    shape = (B, cfg.n_kv_heads, W, cfg.hd)
+    ck = rng.standard_normal(shape, dtype=np.float32)
+    cv = rng.standard_normal(shape, dtype=np.float32)
+    tp = {k: _t(v) for k, v in p.items()}
+    kw, jkw = {}, {}
+    if branch != "none":
+        kw = dict(cache=dict(k=_t(ck), v=_t(cv)), cache_len=L0)
+        jkw = dict(cache=dict(k=jnp.asarray(ck), v=jnp.asarray(cv)),
+                   cache_len=jnp.int32(L0))
+    if branch == "ring":
+        slot_pos = np.full(W, -1, np.int32)
+        live = np.arange(max(0, L0 - W), L0)
+        slot_pos[live % W] = live
+        kw["cache_pos"] = torch.from_numpy(slot_pos)
+        jkw["cache_pos"] = jnp.asarray(slot_pos)
+    got, gc = layers.attention_block(_t(x), tp, cfg, torch.from_numpy(
+        np.ascontiguousarray(pos)), **kw)
+    want, wc = jlayers.attention_block(jnp.asarray(x), p, jcfg,
+                                       jnp.asarray(pos), **jkw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if branch != "none":
+        for name in ("k", "v"):
+            np.testing.assert_allclose(gc[name].numpy(),
+                                       np.asarray(wc[name]), **TOL)
+
+
+def _models(arch, seed=0):
+    cfg, jcfg = _cfg(arch)
+    params = _np(jT.init_params(jax.random.PRNGKey(seed), jcfg))
+    rng = np.random.default_rng(seed)
+    for leaves in params["groups"].values():
+        mixer = leaves["mixer"]
+        for name in ("bq", "bk", "bv"):
+            if name in mixer:
+                mixer[name] = rng.standard_normal(
+                    mixer[name].shape, dtype=np.float32) * 0.1
+    model = transformer.DecoderLM(cfg, device="cpu")
+    transformer.load_reference_params(model, params)
+    return cfg, jcfg, params, model
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-9b",
+                                  "h2o-danube-1.8b"])
+def test_forward_logits_match_reference(arch):
+    cfg, jcfg, params, model = _models(arch)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (2, 40)
+                                             ).astype(np.int32)
+    before = fk.launch_count()
+    got = transformer.forward(model, torch.from_numpy(toks))
+    want = jT.forward(params, jnp.asarray(toks), jcfg)
+    assert got.shape == (2, 40, cfg.vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert fk.launch_count() == before
+
+
+def test_state_dict_names_follow_the_reference_tree():
+    cfg, _, params, model = _models("qwen1.5-0.5b")
+    sd = model.state_dict()
+    assert "groups.1.pos0.mixer.wq" in sd and "embed" in sd
+    np.testing.assert_array_equal(
+        sd["groups.1.pos0.mixer.bq"].numpy(),
+        params["groups"]["pos0"]["mixer"]["bq"][1])
+    assert transformer.param_count(model) == sum(
+        np.asarray(a).size for a in jax.tree.leaves(params))
+    bad = dict(params, extra=np.zeros(1))
+    with pytest.raises(ValueError, match="tree has"):
+        transformer.load_reference_params(model, bad)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b",
+                                  "qwen3-moe-235b-a22b",
+                                  "seamless-m4t-large-v2", "internvl2-26b"])
+def test_unported_mixers_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+        transformer.DecoderLM(configs.smoke(arch), device="cpu")
