@@ -8,7 +8,10 @@ Phases, each printed as one JSON line (``"phase": ...``):
              ``nvidia-smi --query-gpu=name,power.limit`` line is printed
              on its own line too).
 2. build  -- compiles every CUDA kernel from ``src/repro_torch/csrc`` with
-             nvcc, one process per source, all started together.
+             nvcc, one process per source, all started together; prints
+             ptxas's registers and spill bytes for each flash-attention
+             kernel and the ``HMMA`` (tensor-core) instructions of each in
+             ``cuobjdump -sass``: every tc instantiation must hold some.
 3. lm     -- the LM serving path at full width and depth: qwen1.5-0.5b
              (24 layers, d_model 1024, 16 heads of 64, vocab 151,936),
              bf16 weights from a seeded generator, through
@@ -16,12 +19,15 @@ Phases, each printed as one JSON line (``"phase": ...``):
              of 8 prompts of 2048 tokens and 128 greedy new tokens
              (max_len 2176), each under sync debug mode "error". Every
              forward must launch the flash-attention kernel once a layer
-             (24 a forward, 24 x 128 a generate). Prefill ms, decode ms
+             (24 a forward, 24 x 128 a generate): every prefill its tc
+             variant 24 times, every decode step its decode variant 24
+             times. Prefill ms, decode ms
              a token (p50, p99), tokens/s, peak memory; an f32 rerun of
              the same weights (B=2, P=256, 32 new tokens) must agree with
              the argmax of the teacher-forced forward at >= 99% of
-             positions (``examples/serve_lm.py``'s bar); one prefill and
-             one decode step under ``torch.profiler``.
+             positions (``examples/serve_lm.py``'s bar) and take only
+             the simt (prefill) and decode variants; one prefill and one
+             decode step under ``torch.profiler``.
 4. main   -- the serving loop at a deployment's size: ``SpatialServer``
              over a SPaC-tree (``spac-h``, phi=32, version window 4) of
              10^7 uniform 2D int32 points in [0, 2^20), then 1 warm-up
@@ -71,8 +77,10 @@ Phases, each printed as one JSON line (``"phase": ...``):
              view) and on yi-9b's GQA and h2o-danube-1.8b's window shapes,
              each in bf16 (the path's type; 1e-2 relative, about one bf16
              ulp, and 1e-4 absolute) and on f32 copies of the same inputs
-             (2e-5), with ``scaled_dot_product_attention`` timed beside
-             it as the library yardstick.
+             (2e-5), the variant the wrapper takes (tc or decode) timed
+             in turns with the simt variant on the same bf16 inputs, and
+             ``scaled_dot_product_attention`` timed beside them as the
+             library yardstick.
 12. sync -- every dynamic kind's ``server.insert`` above ran under
              ``torch.cuda.set_sync_debug_mode("error")``.
 
@@ -88,6 +96,8 @@ import contextlib
 import gc
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -859,6 +869,59 @@ def spacz_morton(dev) -> tuple:
 # the LM serving path and the flash-attention kernel
 # ---------------------------------------------------------------------------
 
+def kernel_label(mangled: str) -> str:
+    """``flash_tc_kernel<128>`` from the mangled name of a template
+    instantiation of this repo's kernels."""
+    m = re.search(r"\d+(flash_\w+?_kernel)I(.+?)EEv", mangled)
+    if m is None:
+        return mangled
+    args = m.group(2).replace("13__nv_bfloat16", "bf16,")
+    args = re.sub(r"Li(\d+)E", r"\1,", args)
+    args = re.sub(r"^f", "f32,", args)
+    return f"{m.group(1)}<{args.rstrip(',')}>"
+
+
+def flash_attn_build(ptxas: str) -> dict:
+    """Registers and spill bytes of every flash-attention kernel from
+    ``ptxas -v``, and the ``HMMA`` (tensor-core) instructions of each in
+    the library's SASS (``cuobjdump -sass``); every tc instantiation
+    must hold some."""
+    kernels, name = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_label(m.group(1))
+            kernels[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            kernels[name]["spill_store_bytes"] = int(m.group(1))
+            kernels[name]["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernels[name]["registers"] = int(m.group(1))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.lib_path("flash_attn"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_label(m.group(1))
+            kernels.setdefault(name, {})["hmma"] = 0
+        elif name and "HMMA" in line:
+            kernels[name]["hmma"] += 1
+    tc = {k: v for k, v in kernels.items() if k.startswith("flash_tc_")}
+    check(len(tc) == len(fak.TC_DIMS) and all(v.get("hmma", 0) > 0
+                                              for v in tc.values()),
+          f"build: tc kernels without HMMA instructions: {tc}")
+    check(all("registers" in v for v in kernels.values()),
+          f"build: ptxas reported no registers for some kernels: {kernels}")
+    return kernels
+
+
 @contextlib.contextmanager
 def patched(obj, name: str, fn):
     """``obj.name = fn`` inside the block."""
@@ -868,6 +931,11 @@ def patched(obj, name: str, fn):
         yield
     finally:
         setattr(obj, name, old)
+
+
+def variant_counts() -> dict:
+    """Flash-attention wrapper calls by variant since the last reset."""
+    return {v: fak.launch_count(v) for v in fak.VARIANTS}
 
 
 class LMProbe:
@@ -880,6 +948,7 @@ class LMProbe:
     def __init__(self, capture_len: int):
         self.events = {"prefill": [], "decode": []}
         self.launches = {"prefill": [], "decode": []}
+        self.variants = {"prefill": [], "decode": []}
         self.capture = False
         self.capture_len = capture_len
         self.captured = {}
@@ -901,11 +970,14 @@ class LMProbe:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             before = fak.launch_count()
+            by_before = variant_counts()
             start.record()
             out = orig(model, *args)
             end.record()
             self.events[phase].append((start, end))
             self.launches[phase].append(fak.launch_count() - before)
+            self.variants[phase].append(
+                {k: n - by_before[k] for k, n in variant_counts().items()})
             return out
         return run
 
@@ -960,6 +1032,7 @@ def lm_phase(dev) -> tuple[dict, dict]:
                 gen_s.append(time.perf_counter() - t1)
                 outs.append(out)
     launches = counts()
+    by_variant = variant_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = LM_NEW - 1
     prefill_ms = [a.elapsed_time(b) for a, b in
@@ -978,6 +1051,12 @@ def lm_phase(dev) -> tuple[dict, dict]:
           f"{runs * LM_NEW * L}")
     check(all(v == 0 for k, v in launches.items() if k != "flash_attn"),
           f"lm: other kernels launched: {launches}")
+    only = {"prefill": {"tc": L, "decode": 0, "simt": 0},
+            "decode": {"tc": 0, "decode": L, "simt": 0}}
+    for phase, want in only.items():
+        got = [c for c in probe.variants[phase] if c != want]
+        check(not got, f"lm: a bf16 {phase} forward took flash-attention "
+              f"variants {got[:1]}, not {want}")
     last = outs[-1]
     check(last.shape == (LM_BATCH, LM_NEW) and last.dtype == torch.int32
           and bool(((last >= 0) & (last < cfg.vocab)).all()),
@@ -993,6 +1072,7 @@ def lm_phase(dev) -> tuple[dict, dict]:
     out32 = ServeEngine(cfg32, m32, LM_F32_PROMPT + LM_F32_NEW).generate(
         p32, LM_F32_NEW)
     f32_launches = counts()["flash_attn"]
+    f32_variants = variant_counts()
     with torch.inference_mode():
         logits = transformer.forward(m32, torch.cat([p32, out32.long()], 1))
     ref = logits[:, LM_F32_PROMPT - 1:-1].argmax(-1)
@@ -1001,6 +1081,9 @@ def lm_phase(dev) -> tuple[dict, dict]:
     del m32, logits
     check(f32_launches == LM_F32_NEW * L, f"lm: the f32 rerun launched the "
           f"kernel {f32_launches} times")
+    check(f32_variants == {"tc": 0, "decode": (LM_F32_NEW - 1) * L,
+                           "simt": L},
+          f"lm: the f32 rerun took flash-attention variants {f32_variants}")
     check(agree >= LM_AGREE, f"lm: f32 greedy decode agrees with the "
           f"teacher-forced forward at {agree:.4f} of positions")
 
@@ -1032,20 +1115,23 @@ def lm_phase(dev) -> tuple[dict, dict]:
            "kv_cache_bytes": kv_bytes,
            "flash_attn_launches": {
                "per_generate": {"prefill": L, "decode": steps * L},
-               "total": launches["flash_attn"], "runs": runs},
+               "total": launches["flash_attn"], "runs": runs,
+               "by_variant": by_variant},
            "launches": launches,
            "repeat_tokens_equal": all(bool(torch.equal(o, last))
                                       for o in outs),
            "generates_under_sync_debug_error": runs,
            "f32_rerun": {"batch": LM_F32_BATCH, "prompt": LM_F32_PROMPT,
                          "new": LM_F32_NEW, "agreement": agree,
-                         "bar": LM_AGREE, "launches": f32_launches},
+                         "bar": LM_AGREE, "launches": f32_launches,
+                         "launches_by_variant": f32_variants},
            "profile_prefill": prof_prefill, "profile_decode": prof_decode}
     row = flash_attn_kernel_row(probe.captured, {
         "lm": launches["flash_attn"],
         "lm_prefill": sum(probe.launches["prefill"]),
         "lm_decode": sum(probe.launches["decode"]),
-        "lm_f32_rerun": f32_launches}, dev)
+        "lm_f32_rerun": f32_launches}, {
+        "lm": by_variant, "lm_f32_rerun": f32_variants}, dev)
     del probe, model, engine, outs
     free()
     return out, row
@@ -1061,18 +1147,20 @@ def attn_pairs(Sq: int, Skv: int, causal: bool, window, q_offset: int) -> int:
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def attn_compare(q, k, v, kw: dict) -> dict:
-    """The kernel against its plain version on (q, k, v) at the
-    tolerance of their dtype: the largest error, the largest share of
-    the allowed error (<= 1 passes) and the mean |output|."""
-    got = fak.flash_attention(q, k, v, **kw).float()
+def attn_compare(q, k, v, kw: dict, variant: str | None = None) -> dict:
+    """A flash-attention variant (the one the wrapper picks, or the one
+    named) against the plain version on (q, k, v) at the tolerance of
+    their dtype: the largest error, the largest share of the allowed
+    error (<= 1 passes) and the mean |output|."""
+    used = variant or fak.variant_for(q, k, v)
+    got = fak._launch(used, q, k, v, **kw).float()
     want = attention_plain(q, k, v, **kw).float()
     tol = ATTN_TOL[q.dtype]
     diff = (got - want).abs()
     share = float((diff / (tol["atol"] + tol["rtol"] * want.abs())).max())
-    return {"max_abs_err": float(diff.max()), "tolerance_share": share,
-            "all_close": share <= 1.0, "tolerance": tol,
-            "mean_abs_out": float(want.abs().mean())}
+    return {"variant": used, "max_abs_err": float(diff.max()),
+            "tolerance_share": share, "all_close": share <= 1.0,
+            "tolerance": tol, "mean_abs_out": float(want.abs().mean())}
 
 
 def f32_copy(t):
@@ -1087,17 +1175,29 @@ def attn_at(q, k, v, kw: dict, library) -> dict:
     ``library`` is one ``scaled_dot_product_attention`` call of the same
     function, timed beside it. The bound counts q, k, v read once and the
     output written once over 3.35 TB/s, and 4 d operations per visible
-    (query, kv) pair over the bf16 tensor-core peak."""
+    (query, kv) pair over the bf16 tensor-core peak. The variant the
+    wrapper picks is timed beside ``simt`` on the same inputs, in turns
+    (plain, variant, simt, variant), and both are checked; one call of
+    it runs under the profiler (its kernels' device time: decode's split
+    and merge launches apart)."""
     cmp = attn_compare(q, k, v, kw)
+    cmp_simt = attn_compare(q, k, v, kw, "simt")
     cmp32 = attn_compare(f32_copy(q), f32_copy(k), f32_copy(v), kw)
     want = attention_plain(q, k, v, **kw)
     lib_err = float((library().float() - want.float()).abs().max())
     del want
     B, Hq, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    ms = time_ms(lambda: fak.flash_attention(q, k, v, **kw), reps=10)
+    variant = cmp["variant"]
     plain_ms = time_ms(lambda: attention_plain(q, k, v, **kw), reps=2)
+    turns = [time_ms(lambda: fak._launch(variant, q, k, v, **kw), reps=10)]
+    cmp_simt["ms"] = time_ms(lambda: fak._launch("simt", q, k, v, **kw),
+                             reps=3)
+    turns.append(time_ms(lambda: fak._launch(variant, q, k, v, **kw),
+                         reps=10))
+    ms = float(np.mean(turns))
     library_ms = time_ms(library, reps=10)
+    device = device_ops(lambda: fak._launch(variant, q, k, v, **kw), top=3)
     pairs = attn_pairs(Sq, Skv, kw["causal"], kw.get("window"),
                        kw["q_offset"])
     bytes_moved = (2 * B * Hq * Sq * d + 2 * B * Hkv * Skv * d) * \
@@ -1105,8 +1205,11 @@ def attn_at(q, k, v, kw: dict, library) -> dict:
     ops = 4 * B * Hq * d * pairs
     b_ms, by, how = bound(bytes_moved, ops, BF16_TC_OPS_PER_S,
                           "bf16 tensor-core")
-    return {**cmp, "all_close": cmp["all_close"] and cmp32["all_close"],
-            "f32_copy": cmp32, "ms": ms, "plain_ms": plain_ms,
+    return {**cmp, "all_close": (cmp["all_close"] and cmp32["all_close"]
+                                 and cmp_simt["all_close"]),
+            "f32_copy": cmp32, "simt": cmp_simt, "ms": ms, "ms_turns": turns,
+            "simt_ms": cmp_simt["ms"], "device_profile": device,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms,
             "library_max_abs_err": lib_err,
             "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Skv": Skv,
@@ -1124,11 +1227,12 @@ def window_mask(S: int, window: int, dev):
                                              pos[:, None] - window)
 
 
-def flash_attn_kernel_row(captured: dict, launches: dict, dev) -> dict:
+def flash_attn_kernel_row(captured: dict, launches: dict, by_variant: dict,
+                          dev) -> dict:
     """The kernel at the LM path's own inputs (layer 0 of one prefill,
     and of the decode step at Skv = 2175 through the cache's prefix
     view), and at yi-9b's GQA and h2o-danube-1.8b's window shapes on
-    seeded inputs."""
+    seeded inputs: each case names the variant the wrapper took."""
     check(set(captured) == {"prefill", "decode"},
           f"lm: captured attention inputs {sorted(captured)}")
     q, k, v, kw = captured["prefill"]
@@ -1158,14 +1262,18 @@ def flash_attn_kernel_row(captured: dict, launches: dict, dev) -> dict:
     cases = [at_prefill, at_decode, *extra.values()]
     ok = all(c["all_close"] for c in cases)
     check(ok, "flash_attn: kernel differs from its plain version beyond "
-          "the tolerance (share of the allowed error, bf16 / f32): "
-          + ", ".join(f"{c['tolerance_share']:.3g} / "
-                      f"{c['f32_copy']['tolerance_share']:.3g}"
-                      for c in cases))
+          "the tolerance (share of the allowed error, bf16 variant / bf16 "
+          "simt / f32): " + ", ".join(
+              f"{c['variant']} {c['tolerance_share']:.3g} / "
+              f"{c['simt']['tolerance_share']:.3g} / "
+              f"{c['f32_copy']['tolerance_share']:.3g}" for c in cases))
+    check([c["variant"] for c in cases] == ["tc", "decode", "tc", "tc"],
+          f"flash_attn: the cases took {[c['variant'] for c in cases]}")
     return {"name": "flash_attn", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/kernel.py:83",
             "launches": launches["lm"], "launches_by_path": launches,
+            "launches_by_variant": by_variant,
             **at_prefill,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "f32_max_abs_err": max(c["f32_copy"]["max_abs_err"]
@@ -1196,8 +1304,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     report = build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": {k: v["seconds"] for k, v in report.items()}})
+    build_s = time.perf_counter() - t0
+    if "flash_attn" not in report:  # a library left by an earlier run
+        report.update(build.build(["flash_attn"], force=True))
+    flash_build = flash_attn_build(report["flash_attn"]["ptxas"])
+    emit({"phase": "build", "seconds": build_s,
+          "kernels": {k: v["seconds"] for k, v in report.items()},
+          "flash_attn": flash_build})
 
     lm, flash_row = lm_phase(dev)
     emit(lm)

@@ -46,9 +46,10 @@ def lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{tag[:12]}.so"
 
 
-def build(names=None) -> dict:
+def build(names=None, force: bool = False) -> dict:
     """Compile every named kernel (default: all) whose library is
-    missing, one ``nvcc`` per source, all started together. Returns
+    missing (every named one with ``force``), one ``nvcc`` per source,
+    all started together. Returns
     ``{name: {"seconds": s, "ptxas": text}}`` for the sources built;
     raises ``RuntimeError`` with the compiler's output on failure."""
     names = list(SOURCES if names is None else names)
@@ -57,7 +58,7 @@ def build(names=None) -> dict:
     t0 = time.perf_counter()
     for name in names:
         out = lib_path(name)
-        if out.exists():
+        if out.exists() and not force:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),

@@ -1,12 +1,28 @@
-"""Flash attention: the CUDA kernel ``csrc/flash_attn.cu``.
+"""Flash attention: the CUDA kernels of ``csrc/flash_attn.cu``.
 
 Counterpart of ``repro/kernels/flash_attn/kernel.py:flash_attention``,
 widened to the function of the reference models' jnp twin
 (``repro/models/layers.py:_chunk_attention``): queries at ``q_offset +
 i``, kv slots at explicit positions ``k_pos`` (-1 = empty). The contract
-is :func:`ref.attention_plain`'s. :func:`flash_attention` launches the
+is :func:`ref.attention_plain`'s. :func:`flash_attention` launches a
 kernel for CUDA tensors and takes the plain version for CPU tensors; any
-other device raises. Each launch adds one to :func:`launch_count`.
+other device raises.
+
+Three variants compute that one function; :func:`variant_for` picks one
+from dtype, shapes and strides alone, before any launch:
+
+- ``tc``: bf16, ``d % 16 == 0``, ``d <= 128``, ``Sq >= 2``, and q, k, v
+  rows that ``cp.async`` can load (base pointers and (batch, head,
+  sequence) strides 16-byte aligned): tensor-core prefill.
+- ``decode``: ``Sq == 1``, either dtype, any ``d <= 256`` (up to
+  :data:`DECODE_MAX_GROUP` q heads a kv head): split-kv, two launches
+  (chunks, then their merge) over a scratch this wrapper allocates.
+- ``simt``: everything else (f32, other head widths, unaligned views):
+  the CUDA-core kernel.
+
+Each wrapper call adds one to :func:`launch_count` and one to
+``launch_count(variant)``. A build or launch error raises; no other
+variant is tried.
 
 Only the last dimension of q, k and v must be contiguous: a cache's
 valid prefix ``cache[:, :, :n]`` and the ``transpose(1, 2)`` of a
@@ -19,32 +35,54 @@ nothing back.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import build
-from .ref import attention_plain
+from .ref import attention_plain, kv_span
 
 MAX_D = 256
+VARIANTS = ("tc", "decode", "simt")
+TC_DIMS = tuple(range(16, 129, 16))
+# decode: chunks of at most this many kv slots, halved (down to
+# DECODE_MIN_CHUNK) until the grid covers the card's SMs twice; at most
+# DECODE_MAX_SPLITS chunks (the merge keeps a weight of each in shared
+# memory)
+DECODE_CHUNK, DECODE_MIN_CHUNK, DECODE_MAX_SPLITS = 256, 32, 4096
+SMS = 132  # H100 SXM
+# decode stages the group's q rows in shared memory (at most 64 x 256 f32)
+DECODE_MAX_GROUP = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_STATS = {"launches": 0}
+_ENTRY = {"simt": "flash_attn_launch", "tc": "flash_attn_tc_launch",
+          "decode": "flash_attn_decode_launch"}
+_STATS = dict.fromkeys(("launches", *VARIANTS), 0)
+_FNS: dict = {}
 
 
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
-    return _STATS["launches"]
+def launch_count(variant: str | None = None) -> int:
+    """Wrapper calls that launched a kernel since the last
+    :func:`reset_launch_count` (of ``variant`` alone when named)."""
+    return _STATS["launches" if variant is None else variant]
 
 
 def reset_launch_count() -> None:
-    _STATS["launches"] = 0
+    for key in _STATS:
+        _STATS[key] = 0
 
 
-def _fn():
-    fn = build.load("flash_attn").flash_attn_launch
-    fn.restype = ctypes.c_int
-    ll, i = ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [i] * 7 + [ll] * 12
-                   + [i, i, i, ctypes.c_float, ctypes.c_void_p])
+def _fn(variant: str):
+    fn = _FNS.get(variant)
+    if fn is None:
+        fn = getattr(build.load("flash_attn"), _ENTRY[variant])
+        fn.restype = ctypes.c_int
+        ll, i = ctypes.c_longlong, ctypes.c_int
+        args = ([ctypes.c_void_p] * 5 + [i] * 7 + [ll] * 12
+                + [i, i, i, ctypes.c_float])
+        if variant == "decode":
+            args += [ctypes.c_void_p] + [i] * 5
+        fn.argtypes = args + [ctypes.c_void_p]
+        _FNS[variant] = fn
     return fn
 
 
@@ -81,12 +119,57 @@ def _inner(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _rows_aligned(t) -> bool:
+    """Every (batch, head, sequence) row of ``t`` starts on 16 bytes, as
+    a 16-byte ``cp.async`` or vector load needs (a view whose last
+    dimension is not contiguous is copied first, and the copy is)."""
+    if t.stride(-1) != 1:
+        return True
+    per = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] % per == 0
+            and all(s % per == 0 for s in t.stride()[:3]))
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(B: int, Hkv: int, Skv: int, *, q_offset: int, causal: bool,
+                window, has_kpos: bool):
+    """``(lo, hi, chunk, splits)`` of the decode variant, from host ints
+    alone: the kv span ``[lo, hi)`` (:func:`ref.kv_span`) cut into
+    ``splits`` chunks of ``chunk`` slots. Chunks are 256 slots, halved
+    down to 32 while the ``(splits, Hkv, B)`` grid would cover the card's
+    132 SMs less than twice, and widened where there would be more than
+    4096 of them."""
+    lo, hi = kv_span(1, Skv, q_offset, causal, window, has_kpos)
+    n = hi - lo
+    chunk = DECODE_CHUNK
+    while chunk > DECODE_MIN_CHUNK and B * Hkv * -(-n // chunk) < 2 * SMS:
+        chunk //= 2
+    chunk = max(chunk, -(-n // DECODE_MAX_SPLITS))
+    return lo, hi, chunk, max(1, -(-n // chunk))
+
+
+def variant_for(q, k, v) -> str:
+    """The variant that takes these inputs: ``"decode"`` for one query
+    row, ``"tc"`` for bf16 query blocks of a tensor-core head width
+    with 16-byte aligned rows, ``"simt"`` for the rest. Decided from
+    dtype, shapes, strides and base-pointer alignment alone (masks and
+    kv positions do not change the choice)."""
+    B, Hq, Sq, d = q.shape
+    Hkv = k.shape[1]
+    if Sq == 1 and Hq // Hkv <= DECODE_MAX_GROUP:
+        return "decode"
+    if (q.dtype == torch.bfloat16 and d in TC_DIMS and Sq >= 2
+            and all(_rows_aligned(t) for t in (q, k, v))):
+        return "tc"
+    return "simt"
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     q_offset=None, k_pos=None):
     """q: (B, Hq, Sq, d), k/v: (B, Hkv, Skv, d) -> (B, Hq, Sq, d) in
     ``q.dtype``; the contract of :func:`ref.attention_plain` (``q_offset
     = None``: the queries are the kv sequence's suffix). f32 or bf16,
-    d <= 256."""
+    d <= 256. CUDA tensors take the kernel :func:`variant_for` names."""
     dev = q.device
     if dev.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
@@ -94,23 +177,56 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if dev.type != "cuda":
         raise ValueError(f"attention: unsupported device {dev}")
     _check(q, k, v, window, k_pos)
+    return _run(variant_for(q, k, v), q, k, v, causal, window,
+                q_offset, k_pos)
+
+
+def _launch(variant: str, q, k, v, *, causal: bool = True, window=None,
+            q_offset=None, k_pos=None):
+    """Launch the named variant on CUDA tensors (it must take them:
+    ``simt`` takes all, ``tc`` and ``decode`` what :func:`variant_for`
+    would give them). For tests and measurements; the models call
+    :func:`flash_attention`."""
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: {variant} runs on CUDA tensors, got "
+                         f"{q.device}")
+    _check(q, k, v, window, k_pos)
+    if variant not in VARIANTS:
+        raise ValueError(f"attention: unknown variant {variant!r}")
+    if variant != "simt" and variant_for(q, k, v) != variant:
+        raise ValueError(f"attention: the {variant} variant does not take "
+                         f"q {tuple(q.shape)} {q.dtype} with strides "
+                         f"{q.stride()}, k strides {k.stride()}")
+    return _run(variant, q, k, v, causal, window, q_offset, k_pos)
+
+
+def _run(variant, q, k, v, causal, window, q_offset, k_pos):
     B, Hq, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if q_offset is None:
         q_offset = Skv - Sq
     q, k, v = _inner(q), _inner(k), _inner(v)
+    dev = q.device
     out = torch.empty((B, Sq, Hq, d), dtype=q.dtype,
                       device=dev).transpose(1, 2)
     if k_pos is not None:
         k_pos = k_pos.contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if k_pos is None else k_pos.data_ptr(),
-                _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, d,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *out.stride()[:3], int(q_offset), int(causal),
-                0 if window is None else int(window), 1.0 / (d ** 0.5),
-                stream)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if k_pos is None else k_pos.data_ptr(),
+            _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], int(q_offset), int(causal),
+            0 if window is None else int(window), 1.0 / (d ** 0.5)]
+    if variant == "decode":
+        lo, hi, chunk, splits = decode_plan(
+            B, Hkv, Skv, q_offset=int(q_offset), causal=causal,
+            window=window, has_kpos=k_pos is not None)
+        part = torch.empty(B * Hq * splits * (d + 2), dtype=torch.float32,
+                           device=dev)
+        vec = _rows_aligned(k) and _rows_aligned(v)
+        args += [part.data_ptr(), lo, hi, chunk, splits, int(vec)]
+    err = _fn(variant)(*args, torch.cuda.current_stream(dev).cuda_stream)
     _STATS["launches"] += 1
-    build.check(err, "flash_attention")
+    _STATS[variant] += 1
+    build.check(err, f"flash_attention ({variant})")
     return out

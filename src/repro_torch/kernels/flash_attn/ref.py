@@ -1,16 +1,25 @@
-"""Plain PyTorch version of the flash-attention kernel.
+"""Plain PyTorch versions of the flash-attention kernel.
 
-Counterpart of ``repro/kernels/flash_attn/ref.py:attention_ref`` with the
-TPU kernel's (``repro/kernels/flash_attn/kernel.py:_attn_kernel``) and the
-reference models' (``repro/models/layers.py:_chunk_attention``) treatment
-of masked scores: their exponentials are zeroed, so a row whose every kv
-slot is masked gives 0. ``attention_ref`` does not zero them and gives
-the mean of ``v`` on such a row; rows with a visible slot agree.
+:func:`attention_plain` is the counterpart of
+``repro/kernels/flash_attn/ref.py:attention_ref`` with the TPU kernel's
+(``repro/kernels/flash_attn/kernel.py:_attn_kernel``) and the reference
+models' (``repro/models/layers.py:_chunk_attention``) treatment of masked
+scores: their exponentials are zeroed, so a row whose every kv slot is
+masked gives 0. ``attention_ref`` does not zero them and gives the mean
+of ``v`` on such a row; rows with a visible slot agree.
 
 Everything is computed in f32 (q scaled before the product, as the TPU
 kernel does) and cast to ``q.dtype`` at the end. Scores are formed for
 a few query rows at a time, so memory stays bounded at long sequences;
 each row's softmax is exact over all its slots.
+
+Beside it, plain mirrors of two CUDA variants' arithmetic, so the CPU
+tests can hold each design against :func:`attention_plain`:
+:func:`attention_split_plain` (``decode``: the kv span cut into chunks,
+a softmax per chunk, the chunks merged in order) and
+:func:`attention_tc_plain` (``tc``: bf16 products summed in f32, the
+scale after the product, an online softmax over 64-slot tiles, and the
+weights ``p`` carried into the value product as bf16 hi + lo).
 """
 
 from __future__ import annotations
@@ -20,6 +29,48 @@ import torch
 NEG_INF = -1e30
 # scores materialised at once: (B, Hq, rows, Skv) f32 entries
 _SCORE_BUDGET = 1 << 27
+# the tc variant's kv tile
+TC_BLOCK = 64
+
+
+def kv_span(Sq: int, Skv: int, q_offset: int, causal: bool, window,
+            has_kpos: bool) -> tuple[int, int]:
+    """The kv slots ``[lo, hi)`` that any of ``Sq`` queries at positions
+    ``q_offset ..`` can see, when kv positions are slot indices (every
+    slot under explicit positions). ``lo == hi`` when none."""
+    lo, hi = 0, Skv
+    if not has_kpos:
+        if causal:
+            hi = min(hi, q_offset + Sq)
+        if window is not None:
+            lo = max(0, q_offset - window + 1)
+    return lo, max(lo, hi)
+
+
+def _prepare(q, k, v, q_offset, k_pos):
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"attention: {Hq} q heads over {Hkv} kv heads")
+    if q_offset is None:
+        q_offset = Skv - Sq
+    group = Hq // Hkv
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    kp = (torch.arange(Skv, device=q.device) if k_pos is None
+          else k_pos.to(device=q.device, dtype=torch.long))
+    return q_offset, kf, vf, kp
+
+
+def _visible(kp, qp, causal: bool, window):
+    """(rows, slots) mask of slots at positions ``kp`` that queries at
+    positions ``qp`` see."""
+    mask = (kp >= 0)[None, :].expand(qp.shape[0], kp.shape[0])
+    if causal:
+        mask = mask & (kp[None, :] <= qp[:, None])
+    if window is not None:
+        mask = mask & (kp[None, :] > qp[:, None] - window)
+    return mask
 
 
 def attention_plain(q, k, v, *, causal: bool, window=None, q_offset=None,
@@ -34,28 +85,16 @@ def attention_plain(q, k, v, *, causal: bool, window=None, q_offset=None,
     query's minus ``window``. q head h reads kv head ``h // (Hq / Hkv)``.
     """
     B, Hq, Sq, d = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
-    if Hq % Hkv:
-        raise ValueError(f"attention: {Hq} q heads over {Hkv} kv heads")
-    if q_offset is None:
-        q_offset = Skv - Sq
+    Skv = k.shape[2]
+    q_offset, kf, vf, kp = _prepare(q, k, v, q_offset, k_pos)
     dev = q.device
-    group = Hq // Hkv
-    kf = k.float().repeat_interleave(group, dim=1)
-    vf = v.float().repeat_interleave(group, dim=1)
     qf = q.float() * (1.0 / (d ** 0.5))
-    kp = (torch.arange(Skv, device=dev) if k_pos is None
-          else k_pos.to(device=dev, dtype=torch.long))
     rows = max(1, _SCORE_BUDGET // max(1, B * Hq * Skv))
     out = []
     for a in range(0, Sq, rows):
         qc = qf[:, :, a:a + rows]
         qp = q_offset + a + torch.arange(qc.shape[2], device=dev)
-        mask = (kp >= 0)[None, :].expand(qc.shape[2], Skv)
-        if causal:
-            mask = mask & (kp[None, :] <= qp[:, None])
-        if window is not None:
-            mask = mask & (kp[None, :] > qp[:, None] - window)
+        mask = _visible(kp, qp, causal, window)
         s = torch.einsum("bhqd,bhkd->bhqk", qc, kf)
         s = torch.where(mask, s, NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
@@ -63,3 +102,81 @@ def attention_plain(q, k, v, *, causal: bool, window=None, q_offset=None,
         l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
         out.append(torch.einsum("bhqk,bhkd->bhqd", p, vf) / l)
     return torch.cat(out, dim=2).to(q.dtype)
+
+
+def attention_split_plain(q, k, v, *, chunk: int, causal: bool,
+                          window=None, q_offset=None, k_pos=None):
+    """:func:`attention_plain`'s function by the ``decode`` variant's
+    arithmetic: the kv span (:func:`kv_span`) is cut into chunks of
+    ``chunk`` slots from its first slot; each chunk gives (m, l, acc)
+    relative to its own row maxima (m >= -1e30, so a chunk whose every
+    slot is masked gives l = 0, acc = 0); the chunks are merged in order
+    with weights exp(m_i - max m)."""
+    B, Hq, Sq, d = q.shape
+    Skv = k.shape[2]
+    q_offset, kf, vf, kp = _prepare(q, k, v, q_offset, k_pos)
+    dev = q.device
+    qf = q.float() * (1.0 / (d ** 0.5))
+    qp = q_offset + torch.arange(Sq, device=dev)
+    lo, hi = kv_span(Sq, Skv, q_offset, causal, window, k_pos is not None)
+    parts = []
+    for s0 in range(lo, max(hi, lo + 1), chunk):
+        sl = slice(s0, min(s0 + chunk, hi))
+        mask = _visible(kp[sl], qp, causal, window)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, sl])
+        s = torch.where(mask, s, float("-inf"))
+        m = torch.full((B, Hq, Sq, 1), NEG_INF, device=dev)
+        if s.shape[-1]:
+            m = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m)
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, sl])))
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    num = torch.zeros((B, Hq, Sq, d), device=dev)
+    den = torch.zeros((B, Hq, Sq, 1), device=dev)
+    for m, l, acc in parts:
+        w = torch.exp(m - mx)
+        den = den + l * w
+        num = num + acc * w
+    return (num / den.clamp_min(1e-30)).to(q.dtype)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def attention_tc_plain(q, k, v, *, causal: bool, window=None,
+                       q_offset=None, k_pos=None):
+    """:func:`attention_plain`'s function by the ``tc`` variant's
+    arithmetic: q and k (bf16 values) multiplied exactly and summed in
+    f32, the scale applied to the f32 scores, an online softmax over
+    kv tiles of 64 slots, and the value product fed ``p`` as
+    ``hi = bf16(p)`` plus ``lo = bf16(p - hi)`` (about 16 significant
+    bits) against bf16 ``v``, summed in f32."""
+    B, Hq, Sq, d = q.shape
+    Skv = k.shape[2]
+    q_offset, kf, vf, kp = _prepare(q, k, v, q_offset, k_pos)
+    dev = q.device
+    scale = 1.0 / (d ** 0.5)
+    qb, kb, vb = _bf16(q), _bf16(kf), _bf16(vf)
+    qp = q_offset + torch.arange(Sq, device=dev)
+    lo, hi = kv_span(Sq, Skv, q_offset, causal, window, k_pos is not None)
+    m = torch.full((B, Hq, Sq, 1), NEG_INF, device=dev)
+    l = torch.zeros((B, Hq, Sq, 1), device=dev)
+    acc = torch.zeros((B, Hq, Sq, d), device=dev)
+    for t0 in range(lo - lo % TC_BLOCK, hi, TC_BLOCK):
+        sl = slice(t0, min(t0 + TC_BLOCK, Skv))
+        s = torch.einsum("bhqd,bhkd->bhqk", qb, kb[:, :, sl]) * scale
+        s = torch.where(_visible(kp[sl], qp, causal, window), s,
+                        float("-inf"))
+        mx = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - mx)
+        p = torch.exp(s - mx)
+        p_hi = _bf16(p)
+        p_lo = _bf16(p - p_hi)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = (acc * alpha
+               + torch.einsum("bhqk,bhkd->bhqd", p_hi, vb[:, :, sl])
+               + torch.einsum("bhqk,bhkd->bhqd", p_lo, vb[:, :, sl]))
+        m = mx
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)

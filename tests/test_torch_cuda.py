@@ -416,6 +416,152 @@ def test_flash_attn_wrapper_raises(cuda):
         fak.flash_attention(q, k, v, window=0)
 
 
+def _ring_pos(cuda, W, off, empty=()):
+    """Slot positions of a W-slot ring holding positions ..off-1."""
+    pos = torch.full((W,), -1, dtype=torch.int32, device=cuda)
+    live = torch.arange(max(0, off - W), off, device=cuda)
+    pos[live % W] = live.to(torch.int32)
+    pos[list(empty)] = -1
+    return pos
+
+
+def _variant_close(cuda, variant, q, k, v, **kw):
+    """The named variant through ``_launch`` against the plain version,
+    counted once under its name."""
+    before = fak.launch_count(variant)
+    got = fak._launch(variant, q, k, v, **kw)
+    assert fak.launch_count(variant) == before + 1
+    _attn_close(got, attention_plain(q, k, v, **kw), q.dtype)
+    return got
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,d,causal,window,q_offset", [
+    (2, 4, 4, 100, 100, 32, True, None, None),   # MHA, ragged tail
+    (1, 8, 2, 130, 130, 64, True, None, None),   # GQA
+    (1, 8, 1, 70, 200, 80, True, None, None),    # MQA suffix
+    (2, 4, 2, 150, 150, 80, True, 40, None),     # sliding window
+    (1, 4, 4, 33, 70, 128, False, None, None),   # non-causal, suffix
+    (1, 4, 2, 90, 50, 64, True, None, None),     # Sq > Skv: masked rows
+    (1, 8, 4, 129, 257, 128, True, 100, None),   # window across tiles
+    (1, 4, 2, 64, 64, 64, True, None, 0),        # one full tile
+    (1, 2, 2, 2, 300, 16, True, None, 7),        # two rows, offset
+])
+def test_flash_attn_tc_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, d, causal,
+                                     window, q_offset):
+    q, k, v = _attn_inputs(cuda, B, Hq, Hkv, Sq, Skv, d, torch.bfloat16,
+                           seed=d + Sq)
+    assert fak.variant_for(q, k, v) == "tc"
+    _variant_close(cuda, "tc", q, k, v, causal=causal, window=window,
+                   q_offset=q_offset)
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_flash_attn_tc_ring_positions(cuda, d):
+    """A ring's explicit positions (empty slots, out of order) in a
+    query block of a ring prefill."""
+    W, off = 96, 150
+    q, k, v = _attn_inputs(cuda, 2, 8, 4, 20, W, d, torch.bfloat16, seed=4)
+    pos = _ring_pos(cuda, W, off, empty=(5, 70))
+    for window in (W, 30):
+        _variant_close(cuda, "tc", q, k, v, causal=True, window=window,
+                       q_offset=off - 20, k_pos=pos)
+
+
+def test_flash_attn_tc_strided_views(cuda):
+    """q from the transpose of a (B, S, H, d) projection, k/v the valid
+    prefix of a longer cache (the LM path's views) go to tc as they
+    are; a sequence stride off 16 bytes goes to simt."""
+    B, H, S, d, cap, n = 2, 4, 70, 64, 200, 133
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((B, S, H, d), generator=g, device=cuda).to(
+        torch.bfloat16).transpose(1, 2)
+    ck = torch.randn((3, B, H, cap, d), generator=g, device=cuda).to(
+        torch.bfloat16)
+    cv = torch.randn_like(ck)
+    k, v = ck[1][:, :, :n], cv[1][:, :, :n]
+    assert fak.variant_for(q, k, v) == "tc"
+    got = _variant_close(cuda, "tc", q, k, v, causal=True, q_offset=n - S)
+    assert got.transpose(1, 2).is_contiguous()
+    wide = torch.randn((B, H, cap, d + 4), generator=g, device=cuda).to(
+        torch.bfloat16)
+    k_odd = wide[:, :, :n, :d]
+    assert fak.variant_for(q, k_odd, k_odd) == "simt"
+    with pytest.raises(ValueError, match="tc variant does not take"):
+        fak._launch("tc", q, k_odd, k_odd)
+    before = fak.launch_count("simt")
+    got = fak.flash_attention(q, k_odd, k_odd, causal=True)
+    assert fak.launch_count("simt") == before + 1
+    _attn_close(got, attention_plain(q, k_odd, k_odd, causal=True),
+                torch.bfloat16)
+
+
+@pytest.mark.parametrize("Skv", [1, 7, 255, 256, 257, 2175])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_decode_matches_plain(cuda, Skv, dtype):
+    q, k, v = _attn_inputs(cuda, 8, 16, 16, 1, Skv, 64, dtype, seed=Skv)
+    assert fak.variant_for(q, k, v) == "decode"
+    _variant_close(cuda, "decode", q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Skv,d,window", [
+    (1, 32, 4, 2175, 128, None),   # yi's grouped heads
+    (2, 32, 8, 1000, 80, 300),     # danube's width, a window
+    (2, 4, 2, 513, 256, None),     # the widest head
+    (2, 4, 1, 300, 30, None),      # a width off 16 bytes (scalar loads)
+    (1, 64, 1, 200, 64, None),     # many q heads a kv head
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_decode_widths_and_groups(cuda, B, Hq, Hkv, Skv, d,
+                                             window, dtype):
+    q, k, v = _attn_inputs(cuda, B, Hq, Hkv, 1, Skv, d, dtype, seed=d)
+    _variant_close(cuda, "decode", q, k, v, causal=True, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_decode_ring_and_prefix_view(cuda, dtype):
+    """A ring cache (empty slots, a chunk of them) and a cache's valid
+    prefix as a strided view."""
+    W, off = 600, 900
+    q, k, v = _attn_inputs(cuda, 2, 8, 2, 1, W, 64, dtype, seed=8)
+    pos = _ring_pos(cuda, W, off, empty=range(100, 140))
+    for window in (W, 200):
+        _variant_close(cuda, "decode", q, k, v, causal=True, window=window,
+                       q_offset=off, k_pos=pos)
+    ck = torch.randn((2, 2, 2, 800, 64), device=cuda).to(dtype)
+    cv = torch.randn_like(ck)
+    _variant_close(cuda, "decode", q, ck[1][:, :, :517], cv[1][:, :, :517],
+                   causal=True)
+    _variant_close(cuda, "decode", q, ck[1][:, :, :517], cv[1][:, :, :517],
+                   causal=True, q_offset=-1)   # sees no slot: 0
+
+
+def test_flash_attn_decode_bit_reproducible(cuda):
+    q, k, v = _attn_inputs(cuda, 8, 16, 16, 1, 2175, 64, torch.bfloat16,
+                           seed=9)
+    a = fak._launch("decode", q, k, v, causal=True)
+    b = fak._launch("decode", q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_simt_matches_plain(cuda, dtype):
+    """simt takes every input, those of tc and decode too."""
+    for Sq in (100, 1):
+        q, k, v = _attn_inputs(cuda, 2, 8, 2, Sq, 150, 64, dtype, seed=10)
+        _variant_close(cuda, "simt", q, k, v, causal=True, window=60)
+
+
+def test_flash_attn_launch_refuses_a_variant_that_does_not_fit(cuda):
+    q, k, v = _attn_inputs(cuda, 1, 2, 2, 8, 8, 64, torch.float32)
+    with pytest.raises(ValueError, match="tc variant does not take"):
+        fak._launch("tc", q, k, v)
+    with pytest.raises(ValueError, match="decode variant does not take"):
+        fak._launch("decode", q, k, v)
+    with pytest.raises(ValueError, match="unknown variant"):
+        fak._launch("wgmma", q, k, v)
+
+
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "h2o-danube-1.8b"])
 def test_smoke_lm_on_card_equals_cpu(cuda, arch):
     """A smoke model built on the card (flash-attention kernel) and the
