@@ -41,7 +41,10 @@ Phases, each printed as one JSON line (``"phase": ...``):
 5. check  -- for 256 sampled queries of the last step, kNN distances
              equal a brute-force direct-form f32 scan over the
              snapshot's live points bit for bit, and range counts equal
-             an int64 brute-force count.
+             an int64 brute-force count. Then ``knn-breakdown-main``: the
+             last batch's frontier prep and kernel timed apart, with the
+             groups each query block's walk claimed (so too for porth,
+             kd and zd).
 6. porth  -- the same loop, trace and traffic over a P-Orth tree
              (``porth``, phi=32, lam=3, 5 rounds, window 4): the sieve
              kernel must launch on the build and on the inserts, the
@@ -69,7 +72,9 @@ Phases, each printed as one JSON line (``"phase": ...``):
              plain PyTorch version on the same inputs (bit-equal), with
              its time, the plain version's time and its bound: the
              frontier kernel on main's last batch and on 4 query blocks
-             of porth's, row-bbox on the porth and main trees, the sieve
+             of porth's (``(d2, ids)`` bit-equal, the bound from the
+             plain walk's steps, both walks' step counts printed),
+             row-bbox on the porth and main trees, the sieve
              on porth's first build round, the Morton kernel on zd's
              build input and on spac-z's, the flash-attention kernel on
              the lm phase's own layer-0 inputs (one prefill, and the
@@ -460,7 +465,11 @@ def frontier_kernel_row(run: dict, launches, dev,
     ``n_blocks`` keeps that many query blocks, evenly spaced in block
     order (the plain walk syncs once per group step, too slow for every
     block of a deep walk); kernel, plain and bound are then all taken on
-    those blocks."""
+    those blocks. The bound counts the groups the plain walk visited:
+    each distinct group's flag and active bytes once, the coordinates of
+    its live slots only, and the pairs of queries and live points scored.
+    The kernel's own step counts (its walk's reach, parallel claims
+    included) are reported beside them."""
     view = run["snap"].index.view()
     pts, valid, active, lo, hi = view
     q = torch.as_tensor(run["qpts"], device=dev)
@@ -479,14 +488,18 @@ def frontier_kernel_row(run: dict, launches, dev,
     want, plain_ms = timed_once(
         lambda: fk.knn_frontier_plain(pr, pts, valid, active, k=K))
     sync()
-    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    # (d2, ids) bit for bit; the kernel's steps are its walk's reach, at
+    # least the plain prefix
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(got[:2], want[:2]))
+    reach_ok = bool((got[2] >= want[2]).all())
     err = float((got[0] - want[0]).abs().max())
     ms = time_ms(lambda: fk.knn_frontier(pr, pts, valid, active, k=K),
-                 reps=3 if n_blocks is None else 2, warmup=0)
-    # what this run's data needs: the groups each block visited
+                 reps=10 if n_blocks is None else 5)
+    # what this run's data needs: the groups the plain walk visited
     nqb, G = pr.order.shape
     br, P = pr.block_r, pr.points_per_group
-    steps = got[2].long()
+    steps = want[2].long()
+    reach = got[2].long()
     ok = valid & active[:, None]
     pad = G * br - R
     if pad:
@@ -497,15 +510,20 @@ def frontier_kernel_row(run: dict, launches, dev,
     union = torch.zeros(G + 1, dtype=torch.bool, device=dev)
     union[groups.reshape(-1)] = True
     n_union = int(union[:G].sum())
+    live_in_union = int(per_group[union[:G]].sum())
     pair_slots = int((per_group[pr.order.long()] * visited).sum())
     del visited, groups
     Qp = pr.qs.shape[0]
+    # each distinct visited group's flags and active bytes, and the
+    # coordinates of its live slots only (the kernel copies no others)
     bytes_moved = (Qp * D * 4 + int(steps.sum()) * 8
-                   + n_union * (P * (D * 4 + 1) + br) + Qp * K * 8
-                   + nqb * 4)
+                   + n_union * (P + br) + live_in_union * D * 4
+                   + Qp * K * 8 + nqb * 4)
     ops = bq * pair_slots * OPS_PER_PAIR_PER_DIM * D
     b_ms, by, how = bound(bytes_moved, ops)
     check(equal, "knn_frontier: kernel differs from its plain version")
+    check(reach_ok, "knn_frontier: the kernel's walk stopped short of the "
+          "plain prefix")
     return {"name": "knn_frontier", "route": "cuda",
             "source": "src/repro_torch/csrc/knn_frontier.cu",
             "replaces": "src/repro/kernels/frontier/kernel.py:86",
@@ -517,14 +535,21 @@ def frontier_kernel_row(run: dict, launches, dev,
                       "query_blocks": nqb, "of_query_blocks": nqb_all,
                       "mean_groups_visited": float(steps.float().mean()),
                       "max_groups_visited": int(steps.max()),
-                      "distinct_groups_visited": n_union},
+                      "distinct_groups_visited": n_union,
+                      "live_slots_in_them": live_in_union},
+            "steps": {"kernel_mean": float(reach.float().mean()),
+                      "kernel_max": int(reach.max()),
+                      "overshoot_mean": float((reach - steps).float()
+                                              .mean()),
+                      "overshoot_max": int((reach - steps).max())},
             "bound_terms": how}
 
 
 def frontier_breakdown(name: str, run: dict, dev) -> dict:
     """Where a kNN batch's time goes on the run's last snapshot: the
     prep (group boxes, query sort, per-block visit order) and the
-    frontier kernel alone, with the groups each query block walked.
+    frontier kernel alone, with the groups each query block's walk
+    claimed (the kernel's steps: the plain prefix plus parallel claims).
     These launches come after the path's counts were read."""
     pts, valid, active, lo, hi = run["snap"].index.view()
     q = torch.as_tensor(run["qpts"], device=dev)
@@ -543,8 +568,8 @@ def frontier_breakdown(name: str, run: dict, dev) -> dict:
            "kernel_ms": kernel_ms, "groups": pr.order.shape[1],
            "points_per_group": pr.points_per_group,
            "active_rows": int(active.sum()),
-           "mean_groups_visited": float(steps.mean()),
-           "max_groups_visited": int(steps.max())}
+           "mean_groups_claimed": float(steps.mean()),
+           "max_groups_claimed": int(steps.max())}
     emit(out)
     return out
 
@@ -1326,6 +1351,7 @@ def main() -> int:
     check(main_run["summary"]["launches_by_op"]["delete"]["row_bbox"] > 0,
           "main: the row-bbox kernel never launched on a delete")
     brute_check("main", main_run, N_CHECK, dev)
+    frontier_breakdown("main", main_run, dev)
 
     porth_run = run_server("porth", "porth", N_MAIN, BATCH, STEPS, WARMUP,
                            dev)

@@ -1,5 +1,5 @@
 """Fused frontier kNN: the CUDA kernel ``csrc/knn_frontier.cu`` and its
-plain PyTorch version.
+plain PyTorch versions.
 
 Counterpart of ``repro/kernels/frontier/kernel.py:knn_frontier_pallas``.
 Per query block the walk visits groups in ascending lower-bound order
@@ -10,10 +10,14 @@ direct ``(q - p)^2`` form (``knn/ref.py``), read straight from the
 tree's ``(R, C, D)`` points with validity ``valid & active``.
 
 :func:`knn_frontier` launches the kernel for CUDA tensors and takes
-:func:`knn_frontier_plain` for CPU tensors; each launch adds one to
-:func:`launch_count`. Both return ``(d2, ids, steps)``: ``(Qp, k)``
-results in sorted-query order (``ops.py`` undoes the sort) and the
-number of groups each query block visited.
+:func:`knn_frontier_plain` for CPU tensors; each call that launches adds
+one to :func:`launch_count` (the kernel is two launches: the split walk
+and the merge). Both return ``(d2, ids, steps)``: ``(Qp, k)`` results in
+sorted-query order (``ops.py`` undoes the sort) and a per-block step
+count. :func:`knn_frontier_split_plain` spells the kernel's arithmetic
+(the walk dealt to several walkers under a shared bound, merged by
+``(d2, visit position)``) so the CPU tests can show the split changes no
+bit.
 """
 
 from __future__ import annotations
@@ -26,10 +30,13 @@ from .. import build
 from ..knn.ref import BIG, direct_d2, merge_topk
 from .prep import FrontierPrep
 
-MAX_K = 128   # the kernel keeps k running entries per thread in smem
-MAX_SMEM = 227 * 1024
+MAX_K = 128   # a walker keeps k entries a query (registers to 12, then smem)
+MAX_BLOCK_Q = 32   # one query a lane of a warp
+MAX_GROUP = 512   # points a group: 16 flags a lane of a warp
+EMPTY_POS = 2**31 - 1   # the visit position of an empty list entry
 
 _STATS = {"launches": 0}
+_WALKERS: dict = {}   # (library, device, pts_float, D, k, nqb) -> walkers
 
 
 def launch_count() -> int:
@@ -77,18 +84,108 @@ def knn_frontier_plain(pr: FrontierPrep, pts, valid, active, *, k: int):
     return dist.reshape(-1, k), idx.reshape(-1, k), steps
 
 
-def _fn():
-    fn = build.load("knn_frontier").knn_frontier_launch
+def knn_frontier_split_plain(pr: FrontierPrep, pts, valid, active, *,
+                             k: int, splits: int):
+    """The kernel's arithmetic, batched over query blocks: the visit
+    sequence is dealt round-robin to ``splits`` walkers (round ``t``
+    gives walker ``w`` visit position ``j = t * splits + w``), each keeps
+    its own top-k keyed by ``(d2, pos)`` with ``pos = j * P + slot``, and
+    every claim of a round is checked against the shared bound after the
+    round before: the max over the block's queries of the min over
+    walkers of their k-th best. A block stops after the first round with
+    a failed claim. A candidate enters a walker's list only if its d2 is
+    at most its query's published k-th (that min over walkers, from the
+    round before): above it, k held points beat it. The walkers' lists
+    are then merged by ``(d2, pos)`` and each ``pos`` mapped back to
+    ``order[b, pos // P] * P + pos % P``.
+
+    Returns ``(d2, ids, steps)`` like :func:`knn_frontier_plain`, with
+    ``steps`` the groups each block's walk claimed (every group below it
+    was scored or shown unable to hold a result by its bound); it is at
+    least the plain walk's count."""
+    R, C, D = pts.shape
+    nqb, G = pr.order.shape
+    bq, br, P = pr.block_q, pr.block_r, pr.points_per_group
+    dev = pts.device
+    qb = pr.qs.reshape(nqb, bq, D)
+    dist = torch.full((nqb, splits, bq, k), BIG, device=dev)
+    pos = torch.full((nqb, splits, bq, k), EMPTY_POS, dtype=torch.int64,
+                     device=dev)
+    walking = torch.ones(nqb, dtype=torch.bool, device=dev)
+    steps = torch.zeros(nqb, dtype=torch.int64, device=dev)
+    ok_rows = valid & active[:, None]
+    slot = torch.arange(P, device=dev)
+    for t in range(-(-G // splits)):
+        j = t * splits + torch.arange(splits, device=dev)        # (splits,)
+        jc = j.clamp(max=G - 1)
+        pub = dist[..., k - 1].amin(dim=1)                       # (nqb, bq)
+        bound = pub.amax(dim=1)                                  # (nqb,)
+        live = walking[:, None] & (j < G) & \
+            (pr.glb[:, jc] <= bound[:, None])                   # (nqb, S)
+        steps = steps + walking.long() * (j < G).sum()
+        walking = walking & live.all(dim=1)
+        if not bool(live.any()):
+            break
+        g = pr.order[:, jc].long()                               # (nqb, S)
+        rows = g[..., None] * br + torch.arange(br, device=dev)
+        inside = rows < R
+        rows = rows.clamp(max=R - 1)
+        p = pts[rows].reshape(nqb, splits, P, D).float()
+        ok = (ok_rows[rows] & inside[..., None]).reshape(nqb, splits, P)
+        d2 = direct_d2(qb[:, None, :, None, :], p[:, :, None, :, :])
+        d2 = torch.where(ok[:, :, None, :] & (d2 <= pub[:, None, :, None]),
+                         d2, BIG)                          # (nqb, S, bq, P)
+        # a walker's claims rise, so a tile's positions follow its list's
+        nd, npos = merge_topk(dist, pos, d2, (j[:, None] * P + slot)[
+            None, :, None, :], k)
+        dist = torch.where(live[..., None, None], nd, dist)
+        pos = torch.where(live[..., None, None], npos, pos)
+    all_d = dist.transpose(1, 2).reshape(nqb, bq, splits * k)
+    all_p = pos.transpose(1, 2).reshape(nqb, bq, splits * k)
+    o = torch.argsort(all_p, dim=-1, stable=True)
+    all_d, all_p = all_d.gather(-1, o), all_p.gather(-1, o)
+    o = torch.argsort(all_d, dim=-1, stable=True)[..., :k]
+    d2, pk = all_d.gather(-1, o), all_p.gather(-1, o)
+    jj = (pk // P).clamp(max=G - 1)
+    g = pr.order.long().gather(1, jj.reshape(nqb, -1)).reshape(jj.shape)
+    ids = torch.where(d2 >= BIG, -1, g * P + pk % P).int()
+    return d2.reshape(-1, k), ids.reshape(-1, k), steps.int()
+
+
+def _lib():
+    lib = build.load("knn_frontier")
+    lib.knn_frontier_plan.restype = ctypes.c_int
+    lib.knn_frontier_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = lib.knn_frontier_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + \
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4
-    return fn
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 6
+    return lib
+
+
+def _walkers(lib, pts_float: int, D: int, k: int, nqb: int) -> int:
+    """The walkers a query block gets, from ``knn_frontier_plan`` once
+    per library, device and shape (it depends on the card's occupancy
+    only; the first call also sets the walk's shared-memory limit)."""
+    key = (lib._handle, torch.cuda.current_device(), pts_float, D, k, nqb)
+    if key not in _WALKERS:
+        walkers = ctypes.c_int()
+        build.check(lib.knn_frontier_plan(pts_float, D, k, nqb,
+                                          ctypes.byref(walkers)),
+                    "knn_frontier")
+        _WALKERS[key] = walkers.value
+    return _WALKERS[key]
 
 
 def knn_frontier(pr: FrontierPrep, pts, valid, active, *, k: int):
-    """Run the frontier walk over prepared operands; same contract as
-    :func:`knn_frontier_plain`. CUDA tensors launch the kernel, CPU
-    tensors take the plain version."""
+    """Run the frontier walk over prepared operands. CUDA tensors launch
+    the kernel, CPU tensors take :func:`knn_frontier_plain`.
+
+    The kernel's ``(d2, ids)`` equal the plain walk's bit for bit, and two
+    runs give the same bits. Its ``steps`` are the groups each block's walk
+    claimed, scored or dismissed by the bound: at least the plain walk's
+    count, and more by the claims of walkers running in parallel (how many
+    more varies from run to run)."""
     dev = pts.device
     if dev.type == "cpu":
         return knn_frontier_plain(pr, pts, valid, active, k=k)
@@ -119,19 +216,34 @@ def knn_frontier(pr: FrontierPrep, pts, valid, active, *, k: int):
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn_frontier: k={k} outside the kernel's "
                          f"1..{MAX_K}")
-    if not 1 <= bq <= 1024 or 8 * k * bq + 256 * 13 > MAX_SMEM:
-        raise ValueError(f"knn_frontier: block_q={bq} with k={k} does not "
-                         f"fit one CUDA block")
+    if not 1 <= bq <= MAX_BLOCK_Q:
+        raise ValueError(f"knn_frontier: block_q={bq} outside the kernel's "
+                         f"1..{MAX_BLOCK_Q} (one query a lane)")
+    if pr.points_per_group > MAX_GROUP:
+        raise ValueError(f"knn_frontier: points_per_group="
+                         f"{pr.points_per_group} above the kernel's "
+                         f"{MAX_GROUP} (block_p)")
+    if G * pr.points_per_group >= EMPTY_POS:
+        raise ValueError("knn_frontier: G * points_per_group must stay "
+                         "below 2^31 - 1 (visit positions are int32)")
+    lib = _lib()
+    pts_float = int(pts.dtype == torch.float32)
+    walkers = _walkers(lib, pts_float, D, k, nqb)
+    # zeroed: a cursor, a step count and 32 published k-th bests a block
+    scratch = torch.zeros(nqb * 34, dtype=torch.int32, device=dev)
+    wcount = torch.empty(nqb * walkers, dtype=torch.int32, device=dev)
+    part = torch.empty(nqb * walkers * k * bq, dtype=torch.int64,
+                       device=dev)
     out_d = torch.empty((nqb * bq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nqb * bq, k), dtype=torch.int32, device=dev)
-    steps = torch.empty(nqb, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _fn()(pr.qs.data_ptr(), pts.data_ptr(),
-                int(pts.dtype == torch.float32),
-                valid.view(torch.uint8).data_ptr(),
-                active.view(torch.uint8).data_ptr(), pr.order.data_ptr(),
-                pr.glb.data_ptr(), R, C, D, G, pr.block_r, nqb, bq, k,
-                out_d.data_ptr(), out_i.data_ptr(), steps.data_ptr(), stream)
+    err = lib.knn_frontier_launch(
+        pr.qs.data_ptr(), pts.data_ptr(), pts_float,
+        valid.view(torch.uint8).data_ptr(),
+        active.view(torch.uint8).data_ptr(), pr.order.data_ptr(),
+        pr.glb.data_ptr(), R, C, D, G, pr.block_r, nqb, bq, k, walkers,
+        scratch.data_ptr(), wcount.data_ptr(), part.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), stream)
     _STATS["launches"] += 1
     build.check(err, "knn_frontier")
-    return out_d, out_i, steps
+    return out_d, out_i, scratch[nqb:2 * nqb]

@@ -2,10 +2,10 @@
 
 ``block_p`` is a point budget per group; prep rounds it to whole rows
 (``block_r = block_p // C``). The ``cuda`` entry is a first pick, not a
-sweep: 32 queries is one warp per block (one thread per query), and 512
-points is 8 leaf rows of C = 64, staged through shared memory in tiles of
-256. The ``plain`` entry keeps the reference's CPU tiles: small query
-blocks keep the early exit tight.
+sweep: 32 queries is one query a lane of each walker warp (the kernel
+takes at most 32), and 512 points is 8 leaf rows of C = 64, whose flags a
+warp reads with one 16-byte load a lane. The ``plain`` entry keeps the
+reference's CPU tiles: small query blocks keep the early exit tight.
 """
 
 from __future__ import annotations

@@ -98,21 +98,147 @@ def _leaf_data(R, C, dim, Q, dev, seed=11):
              q.astype(np.int32))]
 
 
+def _frontier_equal(pr, pts, valid, active, k):
+    """One wrapper call (one launch) against the plain walk: (d2, ids)
+    bit for bit, and the kernel's reach at least the plain prefix."""
+    before = fk.launch_count()
+    got = fk.knn_frontier(pr, pts, valid, active, k=k)
+    assert fk.launch_count() == before + 1
+    want = fk.knn_frontier_plain(pr, pts, valid, active, k=k)
+    _equal(got[:2], want[:2])
+    assert (got[2] >= want[2]).all()
+    assert (got[2] <= pr.order.shape[1]).all()
+    return got, want
+
+
+def _tie_data(R, C, dim, Q, dev, seed, dtype=np.int32):
+    """Coordinates from 16 values with a quarter of the points copies of
+    others: ties at the k-th distance are common."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(0, 16, (R * C, dim))
+    dup = rng.random(R * C) < 0.25
+    pts[dup] = pts[rng.integers(0, R * C, int(dup.sum()))]
+    pts = np.sort(pts, axis=0).reshape(R, C, dim).astype(dtype)
+    valid = rng.random((R, C)) > 0.15
+    active = rng.random(R) > 0.1
+    return _with_boxes(pts, valid, active, rng.integers(0, 16, (Q, dim)),
+                       dev)
+
+
+def _sparse_data(R, dim, Q, dev, seed):
+    """P-Orth-like rows of 64 slots holding one or two points anywhere in
+    the row, a fifth of the rows inactive."""
+    rng = np.random.default_rng(seed)
+    C = 64
+    pts = rng.integers(0, 1 << 20, (R * C, dim))
+    pts = np.sort(pts, axis=0).reshape(R, C, dim).astype(np.int32)
+    valid = np.zeros((R, C), bool)
+    rows = np.arange(R)
+    valid[rows, rng.integers(0, C, R)] = True
+    two = rng.random(R) < 0.5
+    valid[rows[two], rng.integers(0, C, R)[two]] = True
+    active = rng.random(R) > 0.2
+    return _with_boxes(pts, valid, active,
+                       rng.integers(0, 1 << 20, (Q, dim)), dev)
+
+
+def _with_boxes(pts, valid, active, q, dev):
+    big = np.iinfo(np.int32).max if pts.dtype == np.int32 else np.inf
+    lo = np.where(valid[..., None], pts, big).min(axis=1).astype(pts.dtype)
+    hi = np.where(valid[..., None], pts, -big).max(axis=1).astype(pts.dtype)
+    return [torch.as_tensor(a, device=dev) for a in
+            (pts, valid, active, lo, hi, q.astype(pts.dtype))]
+
+
 @pytest.mark.parametrize("R,C,dim,Q,k,bq,bp", [
     (37, 16, 2, 33, 8, 8, 64),
     (64, 8, 3, 16, 4, 16, 128),
     (5, 4, 2, 7, 32, 8, 8),
     (3000, 64, 2, 777, 10, 32, 512),
     (3000, 64, 3, 500, 100, 32, 512),
+    (3000, 64, 2, 300, 128, 32, 512),
+    (3000, 48, 1, 200, 10, 32, 512),
+    (3000, 40, 2, 200, 10, 32, 512),
 ])
 def test_knn_frontier_kernel_bit_equal(cuda, R, C, dim, Q, k, bq, bp):
     pts, valid, active, lo, hi, q = _leaf_data(R, C, dim, Q, cuda)
     pr = prep.prepare(pts, valid, active, lo, hi, q, block_q=bq,
                       block_p=bp)
+    _frontier_equal(pr, pts, valid, active, k)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("dim,k", [(1, 10), (2, 1), (2, 10), (3, 100),
+                                   (2, 128)])
+def test_knn_frontier_kernel_ties(cuda, dtype, dim, k):
+    pts, valid, active, lo, hi, q = _tie_data(400, 64, dim, 300, cuda,
+                                              seed=dim * 31 + k,
+                                              dtype=dtype)
+    pr = prep.prepare(pts, valid, active, lo, hi, q, block_q=32,
+                      block_p=512)
+    (d2, _, _), _ = _frontier_equal(pr, pts, valid, active, k)
+    assert (d2[:, -1] < 3.4e38).all()    # every row full: ties decide
+
+
+@pytest.mark.parametrize("dim,k", [(2, 10), (3, 10), (2, 100)])
+def test_knn_frontier_kernel_sparse_rows(cuda, dim, k):
+    data = _sparse_data(20_000, dim, 256, cuda, seed=dim + k)
+    assert int(data[1].sum(1).max()) <= 2
+    pr = prep.prepare(*data, block_q=32, block_p=512)
+    _frontier_equal(pr, *data[:3], k)
+
+
+def test_knn_frontier_kernel_long_walk(cuda):
+    """Two query blocks spread over the whole tree walk thousands of
+    groups, so many CTAs share each block's cursor."""
+    pts, valid, active, lo, hi, q = _leaf_data(60_000, 64, 2, 64, cuda,
+                                               seed=5)
+    pr = prep.prepare(pts, valid, active, lo, hi, q, block_q=32,
+                      block_p=512)
+    assert pr.order.shape == (2, 7500)
+    _, (_, _, steps) = _frontier_equal(pr, pts, valid, active, 10)
+    assert int(steps.min()) >= 1000
+
+
+def test_knn_frontier_kernel_bit_reproducible(cuda):
+    data = _tie_data(2000, 64, 2, 900, cuda, seed=3)
+    pr = prep.prepare(*data, block_q=32, block_p=512)
+    a = fk.knn_frontier(pr, *data[:3], k=10)
+    b = fk.knn_frontier(pr, *data[:3], k=10)
+    _equal(a[:2], b[:2])
+
+
+def test_knn_frontier_kernel_k_order(cuda):
+    """The walker plan is cached per k; the shared-memory top-k's instance
+    serves a smaller k planned after a larger one, and the larger again."""
+    data = _tie_data(600, 64, 2, 200, cuda, seed=11)
+    pr = prep.prepare(*data, block_q=32, block_p=512)
+    for k in (120, 20, 120, 64):
+        _frontier_equal(pr, *data[:3], k)
+
+
+def test_knn_frontier_wrapper_raises_before_launch(cuda):
+    pts, valid, active, lo, hi, q = _leaf_data(300, 64, 2, 64, cuda)
+    pr = prep.prepare(pts, valid, active, lo, hi, q, block_q=32,
+                      block_p=512)
     before = fk.launch_count()
-    got = fk.knn_frontier(pr, pts, valid, active, k=k)
-    assert fk.launch_count() == before + 1
-    _equal(got, fk.knn_frontier_plain(pr, pts, valid, active, k=k))
+    with pytest.raises(ValueError, match="outside"):
+        fk.knn_frontier(pr, pts, valid, active, k=fk.MAX_K + 1)
+    strided = pts.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.knn_frontier(pr, strided, valid, active, k=10)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.knn_frontier(pr._replace(glb=pr.glb.t().contiguous().t()), pts,
+                        valid, active, k=10)
+    wide = prep.prepare(pts, valid, active, lo, hi, q, block_q=64,
+                        block_p=512)
+    with pytest.raises(ValueError, match="block_q"):
+        fk.knn_frontier(wide, pts, valid, active, k=10)
+    big = prep.prepare(pts, valid, active, lo, hi, q, block_q=32,
+                       block_p=1024)
+    with pytest.raises(ValueError, match="points_per_group"):
+        fk.knn_frontier(big, pts, valid, active, k=10)
+    assert fk.launch_count() == before
 
 
 @pytest.mark.parametrize("n,route", [(2000, "flat:cuda"),
