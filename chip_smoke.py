@@ -61,7 +61,8 @@ Phases, each printed as one JSON line (``"phase": ...``):
              frontier kernel on kNN; checked as in 5. Then one zd build
              and one porth build of the bootstrap at the same row
              capacity, timed side by side (the paper's encode-and-sort
-             against the sieve).
+             against the sieve), with one porth insert of 10^5 points
+             into the built tree timed and profiled.
 9. flat   -- a small index (n = 2048, so R*C <= 2^15) through the same
              server pattern, where ``auto`` takes the flat kernel; it must
              launch, and its answers are checked the same way.
@@ -70,12 +71,18 @@ Phases, each printed as one JSON line (``"phase": ...``):
              both.
 11. kernels -- each kernel at the shapes its path gave it, against its
              plain PyTorch version on the same inputs (bit-equal), with
-             its time, the plain version's time and its bound: the
+             its time, the plain version's time and its bound: the flat
+             kernel on the flat phase's batch (also against its split
+             mirror, with its grid), the
              frontier kernel on main's last batch and on 4 query blocks
              of porth's (``(d2, ids)`` bit-equal, the bound from the
              plain walk's steps, both walks' step counts printed),
-             row-bbox on the porth and main trees, the sieve
-             on porth's first build round, the Morton kernel on zd's
+             row-bbox on the porth and main trees, the sieve round's
+             five kernels on porth's first build round against the plain
+             mirror of the round (intermediates included), each kernel's
+             device time, the round as ``segmented_partition`` runs it,
+             and every round of one 10^7-point porth build (chunks in
+             use, active points, ms, each bit-equal), the Morton kernel on zd's
              build input and on spac-z's, the flash-attention kernel on
              the lm phase's own layer-0 inputs (one prefill, and the
              decode step at 2175 kv slots through the cache's prefix
@@ -125,6 +132,7 @@ from repro_torch.kernels.flash_attn.ref import attention_plain  # noqa: E402
 from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
 from repro_torch.kernels.frontier import prep, tuning  # noqa: E402
 from repro_torch.kernels.knn import kernel as kk  # noqa: E402
+from repro_torch.kernels.knn import ref as kref  # noqa: E402
 from repro_torch.kernels.morton import kernel as mk  # noqa: E402
 from repro_torch.kernels.sieve import kernel as sk  # noqa: E402
 from repro_torch.kernels.sieve import ops as sieve_ops  # noqa: E402
@@ -419,30 +427,47 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S,
 
 
 def flat_kernel_row(run: dict, launches: int, dev) -> dict:
+    """The flat kernel on the flat phase's last snapshot and query batch
+    against its plain version and the split mirror at the kernel's own
+    plan, with the grid that plan gives."""
     view = run["snap"].index.view()
     pts, ok = queries.flatten_view(view)
     q = torch.as_tensor(run["qpts"], device=dev)
-    got = kk.knn_flat(q, pts, ok, k=K)
-    want = kk.knn_flat_plain(q, pts, ok, k=K)
-    sync()
-    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
-    err = float((got[0] - want[0]).abs().max())
-    ms = time_ms(lambda: kk.knn_flat(q, pts, ok, k=K), reps=20)
-    plain_ms = time_ms(lambda: kk.knn_flat_plain(q, pts, ok, k=K), reps=5)
     Q, D = q.shape
     N = pts.shape[0]
+    threads, splits, per = kk.split_plan(
+        Q, N, K, torch.cuda.get_device_properties(dev).multi_processor_count)
+    got = kk.knn_flat(q, pts, ok, k=K)
+    want = kk.knn_flat_plain(q, pts, ok, k=K)
+    split = kref.knn_flat_split_plain(q, pts, ok, k=K, splits=splits)
+    sync()
+    equal = all(bool(torch.equal(a, b)) and bool(torch.equal(a, c))
+                for a, b, c in zip(got, want, split))
+    err = float((got[0] - want[0]).abs().max())
+    by_kernel = kernel_ms_by(lambda: kk.knn_flat(q, pts, ok, k=K),
+                             "knn_flat", FLAT_KERNELS, reps=20)
+    ms = sum(by_kernel.values())
+    events_ms = time_ms(lambda: kk.knn_flat(q, pts, ok, k=K), reps=20)
+    plain_ms = time_ms(lambda: kk.knn_flat_plain(q, pts, ok, k=K), reps=5)
     n_ok = int(ok.sum())
     bytes_moved = Q * D * 4 + N * D * 4 + N + Q * K * 8
     ops = Q * n_ok * OPS_PER_PAIR_PER_DIM * D
     b_ms, by, how = bound(bytes_moved, ops)
     check(equal, "knn_flat: kernel differs from its plain version")
+    q_tiles = -(-Q // threads)
     return {"name": "knn_flat", "route": "cuda",
             "source": "src/repro_torch/csrc/knn_flat.cu",
             "replaces": "src/repro/kernels/knn/kernel.py:57",
             "launches": launches, "max_abs_err": err, "bit_equal": equal,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": by, "library_ms": None,
+            "timed": "ms: the two kernels' device time (torch.profiler); "
+                     "events_ms: knn_flat back to back by CUDA events",
+            "kernel_ms": by_kernel, "events_ms": events_ms,
             "shape": {"Q": Q, "N": N, "valid": n_ok, "D": D, "k": K},
+            "grid": {"query_tiles": q_tiles, "splits": splits,
+                     "slots_per_split": per, "threads": threads,
+                     "ctas": q_tiles * splits, "merge_warps": Q},
             "bound_terms": how}
 
 
@@ -574,36 +599,98 @@ def frontier_breakdown(name: str, run: dict, dev) -> dict:
     return out
 
 
-def sieve_passes(pts, lo, hi, seg, act, lam: int, n_chunks: int):
-    """One sieve round over segments ``seg`` of active points ``act``,
-    as ``segmented_partition`` runs it: the kernels' pass and the plain
-    versions' pass over the same chunks, each returning ``(hist, dest,
-    bucket, child_lo, child_hi)``."""
-    n = pts.shape[0]
-    cs, cl = sieve_ops.segment_chunks(seg, act, block_n=sieve_ops.BLOCK_N,
-                                      n_chunks=n_chunks)
-    cseg = seg[cs.clamp(max=n - 1).long()]
+def round_equal(got, want) -> bool:
+    """Two ``SieveRound``s, cut to the chunks in use, field for field
+    (intermediates included: the chunk lists and counts, the multi
+    chunks' histograms and their scan)."""
+    got, want = sieve_ref.in_use(got), sieve_ref.in_use(want)
+    return all(bool(torch.equal(getattr(got, f), getattr(want, f)))
+               for f in got._fields)
 
-    def kernels():
-        hist = sk.sieve_histogram_chunks(pts, lo, hi, cs, cl, lam=lam)
-        off = sieve_ops.chunk_offsets(hist, cs, cl, cseg)
-        return (hist, *sk.sieve_rank_chunks(pts, lo, hi, cs, cl, off,
-                                            lam=lam,
-                                            block_n=sieve_ops.BLOCK_N))
 
-    def plain():
-        hist = sieve_ref.sieve_histogram_plain(pts, lo, hi, cs, cl, lam=lam)
-        off = sieve_ops.chunk_offsets(hist, cs, cl, cseg)
-        return (hist, *sieve_ref.sieve_rank_plain(pts, lo, hi, cs, cl, off,
-                                                  lam=lam))
-    return cs, cl, cseg, kernels, plain
+SIEVE_KERNELS = ("chunks", "single", "hist", "scan", "rank")
+FLAT_KERNELS = ("split", "merge")
+
+
+def kernel_ms_by(fn, prefix: str, names, reps: int = 5) -> dict:
+    """Device ms per call of ``fn`` of each kernel ``<prefix>_<name>_kernel``
+    it launches, by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        m = re.search(prefix + r"_(\w+?)_kernel", e.key)
+        if m and e.device_type == DeviceType.CUDA and m.group(1) in out:
+            out[m.group(1)] += e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Host ms to enqueue one call of ``fn`` (no sync inside the loop)."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    sync()
+    return (t1 - t0) * 1e3 / reps
+
+
+def sieve_build_rounds(boot, capacity_rows: int, lam: int, rounds: int,
+                       dev) -> dict:
+    """One porth build of the bootstrap with every sieve round timed by
+    CUDA events where the build calls it (no sync inside the build), its
+    chunks in use and active points read after, and each round held
+    against the plain mirror on the same inputs."""
+    log = []
+
+    def timed(pts, lo, hi, seg, act, *, lam, n_chunks,
+              block_n=sieve_ops.BLOCK_N):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        r = sk.sieve_round(pts, lo, hi, seg, act, lam=lam, block_n=block_n)
+        b.record()
+        log.append((a, b, r, [t.clone() for t in (pts, lo, hi, seg, act)]))
+        return r.dest, r.bucket, r.lo, r.hi
+
+    D = boot.shape[1]
+    root_lo = torch.zeros(D, dtype=boot.dtype, device=dev)
+    root_hi = torch.full((D,), gen.DEFAULT_HI, dtype=boot.dtype, device=dev)
+    with patched(porth.sieve_ops, "segmented_partition", timed):
+        tree = porth.build(boot, root_lo, root_hi, phi=PHI, lam=lam,
+                           rounds=rounds, capacity_rows=capacity_rows)
+        sync()
+    del tree
+    out, equal = [], True
+    for a, b, r, args in log:
+        ok = round_equal(r, sieve_ref.sieve_round_plain(
+            *args, lam=lam, block_n=sieve_ops.BLOCK_N))
+        ns, nm = r.counts.tolist()
+        out.append({"ms": a.elapsed_time(b), "single_segments": ns,
+                    "multi_chunks": nm, "chunks_in_use": ns + nm,
+                    "active_points": int(args[4].sum()), "bit_equal": ok})
+        equal = equal and ok
+    del log
+    free()
+    return {"rounds": out, "sum_ms": sum(r["ms"] for r in out),
+            "bit_equal": equal}
 
 
 def sieve_kernel_row(run: dict, launches: dict, dev) -> dict:
-    """Both sieve kernels at the porth build's first round (every point
-    of the bootstrap in one segment of the root cell), against their
-    plain versions; plus float32 [0, 1) and 3D cases over random
-    segments, each bit-equal."""
+    """The sieve round's five kernels at the porth build's first round
+    (every point of the bootstrap in one segment of the root cell)
+    against the plain mirror (bit-equal, intermediates included), each
+    kernel's device time, the round as ``segmented_partition`` runs it,
+    every round of one 10^7-point build, and float32 [0, 1) and 3D cases
+    over random segments."""
     pts = run["boot"]
     n, D = pts.shape
     lam = run["summary"]["lam"]
@@ -611,23 +698,33 @@ def sieve_kernel_row(run: dict, launches: dict, dev) -> dict:
     hi = torch.full_like(pts, gen.DEFAULT_HI)
     seg = torch.zeros(n, dtype=torch.int32, device=dev)
     act = torch.ones(n, dtype=torch.bool, device=dev)
-    m = sieve_ops.max_chunks(n, PHI)
-    cs, cl, cseg, kernels, plain = sieve_passes(pts, lo, hi, seg, act, lam,
-                                                m)
+    B = sieve_ops.BLOCK_N
+
+    def kernels():
+        return sk.sieve_round(pts, lo, hi, seg, act, lam=lam, block_n=B)
+
+    def plain():
+        return sieve_ref.sieve_round_plain(pts, lo, hi, seg, act, lam=lam,
+                                           block_n=B)
     got, want = kernels(), plain()
     sync()
-    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
-    err = float((got[1] - want[1]).abs().max())
-    off = sieve_ops.chunk_offsets(got[0], cs, cl, cseg)
-    ms = time_ms(lambda: (
-        sk.sieve_histogram_chunks(pts, lo, hi, cs, cl, lam=lam),
-        sk.sieve_rank_chunks(pts, lo, hi, cs, cl, off, lam=lam,
-                             block_n=sieve_ops.BLOCK_N)), reps=10)
-    plain_ms = time_ms(lambda: (
-        sieve_ref.sieve_histogram_plain(pts, lo, hi, cs, cl, lam=lam),
-        sieve_ref.sieve_rank_plain(pts, lo, hi, cs, cl, off, lam=lam)),
-        reps=3)
-    round_ms = time_ms(kernels, reps=10)
+    equal = round_equal(got, want)
+    err = float((got.dest - want.dest).abs().max())
+    used = sieve_ref.in_use(got)
+    n_single, n_multi = used.counts.tolist()
+    del got, want, used
+    events_ms = time_ms(kernels, reps=10)
+    plain_ms = time_ms(plain, reps=3)
+    round_ms = time_ms(lambda: sieve_ops.segmented_partition(
+        pts, lo, hi, seg, act, lam=lam, n_chunks=sieve_ops.max_chunks(
+            n, PHI)), reps=10)
+    by_kernel = kernel_ms_by(kernels, "sieve", SIEVE_KERNELS)
+    ms = sum(by_kernel.values())
+    enqueue_ms = host_ms(kernels)
+    tree = run["snap"].index.tree
+    build_rounds = sieve_build_rounds(pts, tree.capacity_rows, tree.lam,
+                                      tree.rounds, dev)
+    equal = equal and build_rounds["bit_equal"]
     extra = []
     rng = np.random.default_rng(SEED + 13)
     for dtype, dim, lam_x in ((torch.float32, 2, 3), (torch.int32, 3, 2)):
@@ -645,17 +742,20 @@ def sieve_kernel_row(run: dict, launches: dict, dev) -> dict:
         xseg = torch.as_tensor(starts[which].astype(np.int32), device=dev)
         xact = torch.as_tensor((rng.random(starts.shape[0]) < 0.7)[which],
                                device=dev)
-        *_, xk, xplain = sieve_passes(
-            xp, xlo, xhi, xseg, xact, lam_x,
-            nx // sieve_ops.BLOCK_N + starts.shape[0] + 1)
-        ok = all(bool(torch.equal(x, y)) for x, y in zip(xk(), xplain()))
+        xr = sk.sieve_round(xp, xlo, xhi, xseg, xact, lam=lam_x, block_n=B)
+        ok = round_equal(xr, sieve_ref.sieve_round_plain(
+            xp, xlo, xhi, xseg, xact, lam=lam_x, block_n=B))
         extra.append({"dtype": str(dtype), "n": nx, "D": dim, "lam": lam_x,
-                      "segments": int(starts.shape[0]), "bit_equal": ok})
+                      "segments": int(starts.shape[0]),
+                      "chunks_in_use": xr.counts.tolist(), "bit_equal": ok})
         equal = equal and ok
     K = 1 << (lam * D)
-    # points and their cells in; chunks in; dest, bucket and child cells
-    # out
-    bytes_moved = 3 * n * D * 4 + 2 * m * 4 + 2 * n * 4 + 2 * n * D * 4
+    used_chunks = n_single + n_multi
+    # points and their cells, segment starts and activity in; the chunk
+    # table in use (a start and a length a chunk); dest, bucket and child
+    # cells out
+    bytes_moved = (3 * n * D * 4 + n * 4 + n + 2 * used_chunks * 4
+                   + 2 * n * 4 + 2 * n * D * 4)
     ops = n * lam * D * SIEVE_OPS_PER_LEVEL_DIM
     b_ms, by, how = bound(bytes_moved, ops)
     check(equal, "sieve: kernel differs from its plain version")
@@ -667,10 +767,16 @@ def sieve_kernel_row(run: dict, launches: dict, dev) -> dict:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": None,
             "shape": {"N": n, "D": D, "lam": lam, "buckets": K,
-                      "chunks": m, "block_n": sieve_ops.BLOCK_N,
-                      "dtype": str(pts.dtype)},
-            "timed": "histogram kernel + rank kernel",
+                      "block_n": B, "single_segments": n_single,
+                      "multi_chunks": n_multi, "dtype": str(pts.dtype)},
+            "timed": "ms: the five kernels' device time (torch.profiler); "
+                     "events_ms: sieve_round back to back by CUDA events; "
+                     "with_offsets_scan_ms: segmented_partition likewise",
+            "kernel_ms": by_kernel, "events_ms": events_ms,
+            "host_enqueue_ms": enqueue_ms,
             "with_offsets_scan_ms": round_ms,
+            "build_rounds": build_rounds,
+            "plain": "ref.sieve_round_plain (the decomposition in torch)",
             "extra_cases": extra, "bound_terms": how}
 
 
@@ -849,6 +955,8 @@ def build_compare(kd_run: dict, zd_run: dict, porth_run: dict,
     for name, fn in builds.items():
         tree, ms = timed_once(fn)
         size = int(tree.size)
+        if name == "porth":
+            out["porth_insert"] = porth_insert_profile(tree, dev)
         del tree
         free()
         out[name] = {"build_ms": ms, "size": size, "profile": device_ops(fn)}
@@ -857,6 +965,25 @@ def build_compare(kd_run: dict, zd_run: dict, porth_run: dict,
               f"holds {size} of {boot.shape[0]} points")
     emit(out)
     return out
+
+
+def porth_insert_profile(tree, dev) -> dict:
+    """One insert of a batch of fresh uniform points into a porth tree:
+    its time on the host clock (to a sync), its device time by CUDA
+    events, and where the device time goes (``torch.profiler``)."""
+    rng = np.random.default_rng(SEED + 23)
+    new = torch.as_tensor(gen.uniform(rng, BATCH), device=dev)
+
+    def insert():
+        return porth.insert(tree, new)
+    insert()
+    sync()
+    t0 = time.perf_counter()
+    _, device_ms = timed_once(insert)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    free()
+    return {"points": BATCH, "host_ms": host_ms, "device_ms": device_ms,
+            "profile": device_ops(insert)}
 
 
 def spacz_morton(dev) -> tuple:

@@ -8,8 +8,10 @@ matches ``repro/kernels/knn/ref.py:knn_ref`` rather than the TPU
 kernel's rounding.
 
 :func:`knn_flat` launches the kernel for CUDA tensors and takes the
-plain version for CPU tensors; any other device raises. Each launch adds
-one to :func:`launch_count`.
+plain version for CPU tensors; any other device raises. Each call that
+launches adds one to :func:`launch_count` (the kernel is two launches:
+the split scan and the merge). :func:`split_plan` sizes the grid;
+``ref.knn_flat_split_plain`` spells the split and merge.
 """
 
 from __future__ import annotations
@@ -19,11 +21,16 @@ import ctypes
 import torch
 
 from .. import build
-from .ref import BIG, direct_d2
+from .ref import BIG, direct_d2, split_size
 
-MAX_K = 128   # the kernel keeps k running entries per thread in smem
+MAX_K = 128   # the largest k (above REG_K a top-k lives in shared memory)
+REG_K = 16    # up to here a thread's top-k sits in registers
+CTAS_PER_SM = 4   # the grid the split plan aims for
+MAX_SPLITS = 32   # the merge takes one split's list a lane of a warp
 
 _STATS = {"launches": 0}
+_SMS: dict = {}   # device index -> multiprocessors
+_FNS: dict = {}   # library -> its ctypes launch function
 
 
 def launch_count() -> int:
@@ -52,11 +59,28 @@ def knn_flat_plain(queries, points, ok, *, k: int):
     return d2k, torch.where(d2k >= BIG, -1, idx.int())
 
 
+def split_plan(Q: int, N: int, k: int, sms: int):
+    """The flat kernel's grid: ``(threads, splits, per)`` -- threads a
+    CTA (one a query: 128, or 32 when the top-k lives in shared memory),
+    and the slots cut into ``splits`` ranges of ``per`` so that query
+    tiles x splits reach ``CTAS_PER_SM`` CTAs on each of ``sms`` SMs
+    (no range below 32 slots, at most ``MAX_SPLITS`` ranges)."""
+    threads = 128 if k <= REG_K else 32
+    q_tiles = max(1, -(-Q // threads))
+    want = -(-CTAS_PER_SM * sms // q_tiles)
+    per = split_size(N, min(want, max(1, -(-N // 32)), MAX_SPLITS))
+    return threads, max(1, -(-N // per)), per
+
+
 def _fn():
-    fn = build.load("knn_flat").knn_flat_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p] * 3
+    lib = build.load("knn_flat")
+    fn = _FNS.get(id(lib))
+    if fn is None:
+        fn = lib.knn_flat_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
+            [ctypes.c_void_p] * 4
+        _FNS[id(lib)] = fn
     return fn
 
 
@@ -90,11 +114,17 @@ def knn_flat(queries, points, ok, *, k: int):
     q = queries.float().contiguous()
     p = points.float().contiguous()
     okb = ok.contiguous().view(torch.uint8)
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    threads, splits, per = split_plan(Q, N, k, _SMS[dev.index])
+    part = torch.empty((splits, Q, k), dtype=torch.int64, device=dev)
     out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fn()(q.data_ptr(), p.data_ptr(), okb.data_ptr(), Q, N, D, k,
-                out_d.data_ptr(), out_i.data_ptr(), stream)
+                threads, splits, per, part.data_ptr(), out_d.data_ptr(),
+                out_i.data_ptr(), stream)
     _STATS["launches"] += 1
     build.check(err, "knn_flat")
     return out_d, out_i

@@ -8,18 +8,21 @@ counting sort by bucket inside every segment of active points, with the
 segment order kept and every other point left in place, that also gives
 each active point its bucket's cell.
 
-The offsets are the reference's "matrix-transpose redistribution": an
-exclusive scan of the chunk histograms in (segment, bucket, chunk)
-order. Everything here is fixed-shape torch with no host read, so a
-round enqueues its work without a sync. CUDA tensors go to the kernels
-and CPU tensors to their plain versions (``kernel.py``).
+On the card a round is :func:`kernel.sieve_round`: kernels sized to the
+chunks in use, which stay in device memory, so a round enqueues its work
+without a sync. On the CPU it is the plain route below: fixed-shape
+chunk tables (:func:`segment_chunks`), the chunk histograms, and the
+reference's "matrix-transpose redistribution" (:func:`chunk_offsets`:
+an exclusive scan of the histograms in (segment, bucket, chunk) order)
+before the rank.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernel import sieve_histogram_chunks, sieve_rank_chunks
+from .kernel import sieve_histogram_chunks, sieve_round
+from .ref import sieve_histogram_plain, sieve_rank_plain
 
 BLOCK_N = 1024
 
@@ -28,7 +31,8 @@ def max_chunks(n: int, phi: int, block_n: int = BLOCK_N) -> int:
     """Chunks :func:`segment_chunks` can need when every segment of
     active points holds more than ``phi`` points: ``ceil(L / block_n)``
     per segment of length ``L`` sums to at most ``n / block_n`` plus the
-    number of segments."""
+    number of segments. Sizes the CPU route's tables; the card's round
+    sizes its own by ``n``."""
     return n // block_n + n // (phi + 1) + 1
 
 
@@ -85,16 +89,20 @@ def segmented_partition(pts, cell_lo, cell_hi, seg_start, act, *, lam: int,
     points in place. Returns ``(dest, bucket, lo, hi)``: ``dest[i]`` is
     point ``i``'s new position, ``bucket`` (0 off ``act``) its bucket,
     and ``lo``/``hi`` its bucket's cell (its own cell off ``act``).
-    ``n_chunks`` must bound :func:`segment_chunks`' chunks (see
+    CUDA tensors take :func:`kernel.sieve_round`; CPU tensors the plain
+    route, whose tables ``n_chunks`` must bound (see
     :func:`max_chunks`)."""
+    if pts.device.type != "cpu":
+        r = sieve_round(pts, cell_lo, cell_hi, seg_start, act, lam=lam,
+                        block_n=block_n)
+        return r.dest, r.bucket, r.lo, r.hi
     n = pts.shape[0]
     cs, cl = segment_chunks(seg_start, act, block_n=block_n,
                             n_chunks=n_chunks)
-    hist = sieve_histogram_chunks(pts, cell_lo, cell_hi, cs, cl, lam=lam)
+    hist = sieve_histogram_plain(pts, cell_lo, cell_hi, cs, cl, lam=lam)
     seg = seg_start[cs.clamp(max=max(n - 1, 0)).long()] if n else cs
     offset = chunk_offsets(hist, cs, cl, seg)
-    return sieve_rank_chunks(pts, cell_lo, cell_hi, cs, cl, offset, lam=lam,
-                             block_n=block_n)
+    return sieve_rank_plain(pts, cell_lo, cell_hi, cs, cl, offset, lam=lam)
 
 
 def _one_segment(pts, block_n):

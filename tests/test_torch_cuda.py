@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attn.ref import attention_plain
 from repro_torch.kernels.frontier import kernel as fk
 from repro_torch.kernels.frontier import prep
 from repro_torch.kernels.knn import kernel as kk
+from repro_torch.kernels.knn import ref as knn_ref
 from repro_torch.kernels.morton import kernel as mk
 from repro_torch.kernels.sieve import kernel as sk
 from repro_torch.kernels.sieve import ops as sieve_ops
@@ -68,6 +69,28 @@ def test_knn_flat_kernel_bit_equal(cuda, dim, k):
     got = kk.knn_flat(q, p, ok, k=k)
     assert kk.launch_count() == before + 1
     _equal(got, kk.knn_flat_plain(q, p, ok, k=k))
+
+
+@pytest.mark.parametrize("Q,N,dim,k", [(1, 5, 2, 10), (129, 300, 2, 128),
+                                       (4097, 20480, 2, 10),
+                                       (300, 40, 3, 17), (77, 0, 2, 4)])
+def test_knn_flat_kernel_split_edges(cuda, Q, N, dim, k):
+    """Q not a multiple of the query tile, fewer slots than k, k = 128,
+    duplicated points whose ties straddle the split ranges, and no slot
+    at all: the kernel against the plain version and the split mirror
+    at the kernel's own plan."""
+    rng = np.random.default_rng(Q + N + k)
+    p = rng.integers(0, 64, (N, dim))
+    p[::7] = p[:1]                      # ties in every range
+    q = torch.as_tensor(rng.integers(0, 64, (Q, dim)), dtype=torch.int32,
+                        device=cuda)
+    p = torch.as_tensor(p, dtype=torch.int32, device=cuda)
+    ok = torch.as_tensor(rng.random(N) > 0.1, device=cuda)
+    got = kk.knn_flat(q, p, ok, k=k)
+    _equal(got, kk.knn_flat_plain(q, p, ok, k=k))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits, _ = kk.split_plan(Q, N, k, sms)
+    _equal(got, knn_ref.knn_flat_split_plain(q, p, ok, k=k, splits=splits))
 
 
 def test_knn_flat_wrapper_checks(cuda):
@@ -269,15 +292,47 @@ def _sieve_state(rng, dtype, n, dim, dev):
     return [torch.as_tensor(a, device=dev) for a in (pts, lo, hi)]
 
 
+def _round_equal(got, want):
+    """Two ``SieveRound``s, their chunk lists and tables cut to the
+    entries in use, field for field."""
+    got, want = sieve_ref.in_use(got), sieve_ref.in_use(want)
+    for name in got._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    return got
+
+
+def _segment_layout(rng, name, n, block_n):
+    """Segment starts and activity over n points: 'singles' (33-64
+    points a segment), 'edges' (block_n and block_n + 1 points), 'long'
+    (one segment), 'mixed' (1 to 2 * block_n points, a third inactive),
+    'none' (nothing active)."""
+    if name == "long":
+        lens = np.array([n])
+    elif name == "edges":
+        lens = np.resize([block_n, block_n + 1], n // block_n)
+    else:
+        top = {"singles": (33, 65), "mixed": (1, 2 * block_n),
+               "none": (1, 4 * block_n)}[name]
+        lens = rng.integers(*top, n // top[0] + 1)
+    lens = lens[np.cumsum(lens) <= n]
+    lens = np.append(lens, n - lens.sum()) if lens.sum() < n else lens
+    act = {"none": np.zeros(len(lens), bool),
+           "long": np.ones(len(lens), bool),
+           "mixed": rng.random(len(lens)) < 0.67}.get(
+        name, rng.random(len(lens)) < 0.9)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    return (np.repeat(starts, lens).astype(np.int32), np.repeat(act, lens))
+
+
 @pytest.mark.parametrize("dtype,n,dim,lam,block_n", [
     (torch.int32, 100_000, 2, 3, 1024), (torch.float32, 50_000, 2, 3, 256),
     (torch.int32, 30_000, 3, 2, 1024), (torch.float32, 7, 3, 2, 4096),
     (torch.int32, 5000, 2, 5, 512)])
 def test_sieve_kernels_bit_equal(cuda, dtype, n, dim, lam, block_n):
-    """Both sieve kernels against their plain versions over random
-    segments (some inactive), and the reference-shaped histogram and
-    partition on the card against the same calls on the CPU (the plain
-    versions)."""
+    """The sieve round's kernels against their plain mirror over random
+    segments (some inactive), intermediates included, and the
+    reference-shaped histogram and partition on the card against the same
+    calls on the CPU (the plain route)."""
     rng = np.random.default_rng(n + lam)
     pts, lo, hi = _sieve_state(rng, dtype, n, dim, cuda)
     starts = np.unique(np.concatenate([[0], rng.integers(0, n, 60)]))
@@ -285,22 +340,58 @@ def test_sieve_kernels_bit_equal(cuda, dtype, n, dim, lam, block_n):
     seg = torch.as_tensor(starts[which].astype(np.int32), device=cuda)
     act = torch.as_tensor((rng.random(starts.shape[0]) < 0.7)[which],
                           device=cuda)
-    m = n // block_n + starts.shape[0] + 1
-    cs, cl = sieve_ops.segment_chunks(seg, act, block_n=block_n, n_chunks=m)
     before = sk.launch_count()
-    hist = sk.sieve_histogram_chunks(pts, lo, hi, cs, cl, lam=lam)
-    assert sk.launch_count() == before + 1
-    _equal((hist,), (sieve_ref.sieve_histogram_plain(pts, lo, hi, cs, cl,
-                                                     lam=lam),))
-    off = sieve_ops.chunk_offsets(hist, cs, cl, seg[cs.clamp(max=n - 1)])
-    got = sk.sieve_rank_chunks(pts, lo, hi, cs, cl, off, lam=lam,
-                               block_n=block_n)
-    _equal(got, sieve_ref.sieve_rank_plain(pts, lo, hi, cs, cl, off,
-                                           lam=lam))
+    got = sk.sieve_round(pts, lo, hi, seg, act, lam=lam, block_n=block_n)
+    assert sk.launch_count() == before + 5
+    _round_equal(got, sieve_ref.sieve_round_plain(pts, lo, hi, seg, act,
+                                                  lam=lam, block_n=block_n))
     for fn in (sieve_ops.sieve_histogram, sieve_ops.sieve_partition):
         got = fn(pts, lo, hi, lam=lam, block_n=block_n)
         want = fn(pts.cpu(), lo.cpu(), hi.cpu(), lam=lam, block_n=block_n)
         _equal([g.cpu() for g in got], want)
+
+
+@pytest.mark.parametrize("layout,dtype,n,dim,lam,block_n", [
+    ("singles", torch.int32, 1_000_000, 2, 3, 1024),
+    ("singles", torch.float32, 300_000, 3, 2, 64),
+    ("edges", torch.int32, 500_000, 2, 3, 1024),
+    ("edges", torch.float32, 200_000, 1, 3, 256),
+    ("long", torch.int32, 1_000_000, 2, 3, 1024),
+    ("long", torch.float32, 300_000, 2, 5, 512),
+    ("mixed", torch.int32, 1_000_000, 2, 5, 1024),
+    ("mixed", torch.float32, 400_000, 3, 2, 1024),
+    ("mixed", torch.int32, 200_000, 1, 10, 4096),
+    ("none", torch.int32, 300_000, 2, 3, 1024)])
+def test_sieve_round_layouts_bit_equal(cuda, layout, dtype, n, dim, lam,
+                                       block_n):
+    """Every routing of the round (all single segments, segments of
+    block_n and block_n + 1 points, one segment of many chunks, a mix, no
+    active point) against the plain mirror, intermediates included."""
+    rng = np.random.default_rng(n + dim)
+    pts, lo, hi = _sieve_state(rng, dtype, n, dim, cuda)
+    seg, act = (torch.as_tensor(a, device=cuda)
+                for a in _segment_layout(rng, layout, n, block_n))
+    got = sk.sieve_round(pts, lo, hi, seg, act, lam=lam, block_n=block_n)
+    r = _round_equal(got, sieve_ref.sieve_round_plain(
+        pts, lo, hi, seg, act, lam=lam, block_n=block_n))
+    ns, nm = r.counts.tolist()
+    assert {"singles": nm == 0 and ns > 0, "long": ns == 0 and nm > 1,
+            "none": ns == nm == 0}.get(layout, ns > 0 and nm > 0)
+
+
+def test_sieve_round_without_active_points_is_identity(cuda):
+    n = 200_000
+    rng = np.random.default_rng(1)
+    pts, lo, hi = _sieve_state(rng, torch.int32, n, 2, cuda)
+    seg = torch.zeros(n, dtype=torch.int32, device=cuda)
+    act = torch.zeros(n, dtype=torch.bool, device=cuda)
+    r = sieve_ref.in_use(sk.sieve_round(pts, lo, hi, seg, act, lam=3,
+                                        block_n=1024))
+    assert r.counts.tolist() == [0, 0]
+    assert torch.equal(r.dest, torch.arange(n, dtype=torch.int32,
+                                            device=cuda))
+    assert not r.bucket.any()
+    assert torch.equal(r.lo, lo) and torch.equal(r.hi, hi)
 
 
 @pytest.mark.parametrize("dtype,R,C,dim", [
@@ -446,6 +537,27 @@ def test_server_insert_does_not_sync(cuda, kind):
         torch.cuda.set_sync_debug_mode("default")
     srv.commit()
     assert len(srv.head_index) == 50_000 + 2 * 4096
+
+
+def test_porth_insert_sieve_rounds_do_not_sync(cuda):
+    """A porth insert large enough that its sieve rounds take both the
+    multi-chunk and the single-segment routes runs under sync debug mode
+    "error" and launches the sieve kernels."""
+    rng = np.random.default_rng(4)
+    pts = rng.integers(0, 1 << 20, (300_000, 2)).astype(np.int32)
+    batch = torch.as_tensor(rng.integers(0, 1 << 20, (100_000, 2)),
+                            dtype=torch.int32, device=cuda)
+    srv = SpatialServer.build("porth", pts, capacity_points=400_000)
+    torch.cuda.synchronize()
+    before = sk.launch_count()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        srv.insert(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sk.launch_count() > before
+    srv.commit()
+    assert len(srv.head_index) == 400_000
 
 
 # -------------------------------------------------------------- attention
