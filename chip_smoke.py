@@ -95,6 +95,27 @@ Phases, each printed as one JSON line (``"phase": ...``):
              library yardstick.
 12. sync -- every dynamic kind's ``server.insert`` above ran under
              ``torch.cuda.set_sync_debug_mode("error")``.
+13. driver -- after the runs above are dropped: one ``server.insert`` of
+             10^5 points into a 10^7-point spac-h and porth server (the
+             driver's build), under ``torch.profiler`` with an obs
+             recorder installed, must make no blocking CUDA runtime call
+             (stream, device or event synchronize, ``cudaMemcpy``, a
+             copy to or from pageable memory) and no ``.item()``; then
+             the workload driver's CLI (``python -m
+             repro_torch.serving.driver``) at this configuration (10^7
+             points, sliding window, 10^5 a batch, 4096 kNN (k=10) and
+             range requests a step, window 4, 1 warm-up and 8 measured
+             steps) for spac-h and porth with ``--obs-trace``, the
+             viewer (``python -m repro_torch.obs.view --by-name``) on
+             that trace, and ``--attributed`` for spac-h, each in a
+             subprocess that must exit 0. Checks: every measured step
+             answered 4096 kNN and 4096 range requests; the trace holds
+             one ``serving.commit`` span per replayed step and, in each
+             step, a ``batcher.flush`` span of each op; the frontier and
+             row-bbox kernels (and porth's sieve) launched. One line per
+             kind: per-op p50/p99, rates, bytes, final and expected
+             size, obs counters, launches, the insert profile and, for
+             spac-h, the attributed kNN split and obs-off vs obs-on p50.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -107,11 +128,13 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import pathlib
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -121,7 +144,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, obs  # noqa: E402
 from repro_torch.core import (baselines, make_index, porth,  # noqa: E402
                               queries)
 from repro_torch.data import points as gen  # noqa: E402
@@ -140,7 +163,7 @@ from repro_torch.kernels.sieve import ref as sieve_ref  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serving import (LatencyRecorder, MicroBatcher,  # noqa: E402
-                                 SpatialServer)
+                                 SpatialServer, driver)
 
 SEED = 0
 N_MAIN = 10_000_000
@@ -225,8 +248,7 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-KERNELS = {"knn_flat": kk, "knn_frontier": fk, "row_bbox": bk, "sieve": sk,
-           "morton": mk, "flash_attn": fak}
+KERNELS = {**driver.KERNELS, "flash_attn": fak}
 
 
 def reset_counts() -> None:
@@ -1018,6 +1040,231 @@ def spacz_morton(dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# the workload driver and obs
+# ---------------------------------------------------------------------------
+
+# CUDA runtime calls that block the host (a copy to or from pageable host
+# memory also waits: its device-side record says "Pageable")
+BLOCKING_RUNTIME = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                    "cudaEventSynchronize", "cudaMemcpy")
+DRIVER_KINDS = ("spac-h", "porth")
+DRIVER_SCENARIO = "sliding-window"
+DRIVER_WARMUP, DRIVER_STEPS = 1, 8
+DRIVER_OPS = ("insert", "delete", "knn", "knn_dispatch", "knn_wait",
+              "range", "range_dispatch", "range_wait", "commit")
+
+
+def insert_syncs(kind: str, dev) -> dict:
+    """One ``server.insert`` of 10^5 points into a 10^7-point ``kind``
+    server built as the driver builds it, under
+    ``torch.profiler`` with a recorder installed: the CUDA runtime calls
+    made inside the insert, and those that block the host (must be 0).
+    Independent of ``torch.cuda.set_sync_debug_mode``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    trace = gen.make_trace(DRIVER_SCENARIO, seed=SEED, n=N_MAIN,
+                           batch=BATCH, steps=2)
+    boot = torch.as_tensor(trace.bootstrap, device=dev)
+    (d0, i0), (d1, i1) = [(torch.as_tensor(s.delete, device=dev),
+                           torch.as_tensor(s.insert, device=dev))
+                          for s in trace.steps]
+    srv = SpatialServer.build(kind, boot, phi=PHI, window=WINDOW,
+                              capacity_points=trace.max_live, device=dev,
+                              **driver.build_params(kind))
+    srv.delete(d0)
+    srv.insert(i0)         # the first insert: caches and plans warm
+    srv.commit()
+    srv.delete(d1)
+    sync()
+    with obs.recording(obs.Recorder()) as rec, profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.insert"):
+            srv.insert(i1)
+        sync()
+    srv.commit()
+    events = prof.events()
+    span = next(e for e in events if e.name == "chip_smoke.insert")
+    t0, t1 = span.time_range.start, span.time_range.end
+    inside = [e for e in events if t0 <= e.time_range.start <= t1
+              and e is not span]
+    runtime: dict[str, int] = {}
+    blocking: dict[str, int] = {}
+    for e in inside:
+        if e.name.startswith("cuda"):
+            runtime[e.name] = runtime.get(e.name, 0) + 1
+        if e.name in BLOCKING_RUNTIME or e.name == "aten::_local_scalar_dense":
+            blocking[e.name] = blocking.get(e.name, 0) + 1
+    for e in events:      # device-side copy records lie after the span
+        if e.name.startswith("Memcpy") and "Pageable" in e.name:
+            blocking[e.name] = blocking.get(e.name, 0) + 1
+    out = {"kind": kind, "points": BATCH, "runtime_calls": runtime,
+           "blocking_calls": sum(blocking.values()), "blocking": blocking,
+           "obs_spans": sorted({ev["name"] for ev in rec.events})}
+    check(any(n.startswith("cudaLaunch") for n in runtime),
+          f"{kind}: the profiler saw no kernel launch inside the insert")
+    check("serving.insert" in out["obs_spans"],
+          f"{kind}: no serving.insert span was recorded")
+    check(not blocking, f"{kind}: the insert made blocking CUDA calls "
+          f"{blocking}")
+    return out
+
+
+def run_cli(args: list, timeout: int) -> subprocess.CompletedProcess:
+    """``python -m <args>`` with ``src`` on the path; its output goes to
+    this script's standard error."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    print(out.stdout, out.stderr, sep="\n", file=sys.stderr, flush=True)
+    check(out.returncode == 0, f"{args[0]} exited {out.returncode}")
+    return out
+
+
+def flush_ms(trace: dict, kinds: int, replayed: int) -> list:
+    """Per kind (in run order, each kind's spans lie up to its last
+    commit), the ``batcher.flush`` spans by op: count, rows, and p50 and
+    total of their host time in ms (each flush answers its coalesced
+    batch through the engine)."""
+    xs = sorted((e for e in trace["traceEvents"] if e.get("ph") == "X"),
+                key=lambda e: e["ts"])
+    ends = [c["ts"] + c["dur"] for c in xs if c["name"] == "serving.commit"]
+    out, lo = [], -1.0
+    for i in range(kinds):
+        hi = ends[(i + 1) * replayed - 1]
+        by_op: dict[str, list] = {}
+        for e in xs:
+            if e["name"] == "batcher.flush" and lo < e["ts"] <= hi:
+                by_op.setdefault(e["args"]["op"], []).append(e)
+        out.append({op: {"count": len(es),
+                         "rows": sorted({e["args"]["rows"] for e in es}),
+                         "p50_ms": float(np.median([e["dur"] for e in es]))
+                         / 1e3,
+                         "total_ms": sum(e["dur"] for e in es) / 1e3}
+                    for op, es in by_op.items()})
+        lo = hi
+    return out
+
+
+def trace_checks(trace: dict, steps: int) -> dict:
+    """The obs trace holds one ``serving.commit`` span per replayed step
+    of every kind and, between consecutive commits, a ``batcher.flush``
+    span of each op."""
+    xs = sorted((e for e in trace["traceEvents"] if e.get("ph") == "X"),
+                key=lambda e: e["ts"])
+    commits = [e for e in xs if e["name"] == "serving.commit"]
+    check(len(commits) == steps, f"driver: {len(commits)} serving.commit "
+          f"spans for {steps} steps")
+    prev = -1.0
+    for i, c in enumerate(commits):
+        ops = {e.get("args", {}).get("op") for e in xs
+               if e["name"] == "batcher.flush" and prev < e["ts"] < c["ts"]}
+        check({"knn", "range_count"} <= ops,
+              f"driver: step {i} flushed only {ops}")
+        prev = c["ts"] + c["dur"]
+    spans: dict[str, int] = {}
+    for e in xs:
+        spans[e["name"]] = spans.get(e["name"], 0) + 1
+    return spans
+
+
+def driver_phase(dev) -> dict:
+    """The workload driver's CLI at chip_smoke's spatial configuration
+    (10^7 points, sliding window, batches of 10^5, 4096 kNN and range
+    requests a step, window 4; 1 warm-up and 8 measured steps) for
+    spac-h and porth with an obs trace, the viewer on that trace, and
+    ``--attributed`` for spac-h; then one line per kind. Returns the
+    kernel launches of each kind's driver run."""
+    syncs = {}
+    for kind in DRIVER_KINDS:
+        syncs[kind] = insert_syncs(kind, dev)
+        emit({"phase": "driver-insert-syncs", **syncs[kind]})
+        free()
+    parent_bytes = torch.cuda.memory_allocated()
+    size = ["--scenarios", DRIVER_SCENARIO, "--n", str(N_MAIN), "--batch",
+            str(BATCH), "--queries", str(QUERIES), "--k", str(K),
+            "--window", str(WINDOW), "--warmup", str(DRIVER_WARMUP),
+            "--steps", str(DRIVER_STEPS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        latency, trace_path = f"{tmp}/serve_latency.json", \
+            f"{tmp}/obs_trace.json"
+        attributed = f"{tmp}/serve_trace.json"
+        t0 = time.perf_counter()
+        run_cli(["repro_torch.serving.driver", "--kinds",
+                 ",".join(DRIVER_KINDS), *size, "--json", latency,
+                 "--obs-trace", trace_path], timeout=600)
+        run_s = time.perf_counter() - t0
+        run_cli(["repro_torch.obs.view", trace_path, "--by-name"],
+                timeout=120)
+        t0 = time.perf_counter()
+        run_cli(["repro_torch.serving.driver", "--kinds", "spac-h", *size,
+                 "--attributed", attributed], timeout=300)
+        attributed_s = time.perf_counter() - t0
+        payload = json.loads(pathlib.Path(latency).read_text())
+        trace = json.loads(pathlib.Path(trace_path).read_text())
+        attr = json.loads(pathlib.Path(attributed).read_text())
+    replayed = DRIVER_WARMUP + DRIVER_STEPS
+    spans = trace_checks(trace, replayed * len(DRIVER_KINDS))
+    flushes = flush_ms(trace, len(DRIVER_KINDS), replayed)
+    launches = {}
+    for kind, flush in zip(DRIVER_KINDS, flushes):
+        res = payload["results"][kind][DRIVER_SCENARIO]
+        det = payload["details"][kind][DRIVER_SCENARIO]
+        for op in ("knn", "range"):
+            check(det["units"][op] == QUERIES * DRIVER_STEPS,
+                  f"driver {kind}: {det['units'][op]} {op} requests, not "
+                  f"{QUERIES} x {DRIVER_STEPS}")
+        launches[kind] = det["launches"]
+        check(det["launches"]["knn_frontier"] > 0,
+              f"driver {kind}: the frontier kernel never launched")
+        check(det["launches"]["row_bbox"] > 0,
+              f"driver {kind}: the row-bbox kernel never launched")
+        if kind == "porth":
+            check(det["launches"]["sieve"] > 0,
+                  "driver porth: the sieve kernel never launched")
+        lat = res["latency_ms"]
+        counters = {k: v for k, v in det["counters"].items()
+                    if k in ("engine.plan_request", "engine.plan_miss")
+                    or k.startswith(("engine.route.", "batcher.flush."))}
+        line = {
+            "phase": "driver", "kind": kind, "scenario": DRIVER_SCENARIO,
+            "n": N_MAIN, "batch": BATCH, "queries": QUERIES, "k": K,
+            "window": WINDOW, "warmup": DRIVER_WARMUP,
+            "steps": DRIVER_STEPS,
+            "latency_ms": {op: {p: lat[op][p] for p in
+                                ("p50_ms", "p99_ms", "count")}
+                           for op in DRIVER_OPS if op in lat},
+            "query_per_s": res["throughput"]["query_per_s"],
+            "update_pts_per_s": res["throughput"]["update_pts_per_s"],
+            "wall_s": res["throughput"]["wall_s"],
+            "steady_bytes": res["memory"]["steady_bytes"],
+            "peak_window_bytes": res["memory"]["peak_window_bytes"],
+            "build_s": res["build_s"],
+            "final_size": res["final_size"],
+            "expected_size": det["expected_size"],
+            "requests": {"knn": det["units"]["knn"],
+                         "range": det["units"]["range"]},
+            "counters": counters, "launches": det["launches"],
+            "insert_profile": syncs[kind],
+            "cli_s": {"run_both_kinds": run_s},
+            "parent_allocated_bytes": parent_bytes,
+            "batcher_flush": flush, "trace_spans": spans}
+        if kind == "spac-h":
+            a = attr["results"]["spac-h"]
+            line["attributed"] = {
+                "knn_attribution_ms": a["knn_attribution_ms"],
+                "knn_p50_ms": a["knn_p50_ms"],
+                "plan_cache": a["plan_cache"],
+                "escalation": a["escalation"],
+                "batcher": a["batcher"]}
+            line["cli_s"]["attributed"] = attributed_s
+        emit(line)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the LM serving path and the flash-attention kernel
 # ---------------------------------------------------------------------------
 
@@ -1545,7 +1792,14 @@ def main() -> int:
             sieve_kernel_row(porth_run, by_path("sieve"), dev),
             morton_kernel_row(zd_run["boot"], spacz_pts, by_path("morton")),
             flash_row]
+    del main_run, porth_run, kd_run, zd_run, flat_run, spacz_pts, spacz
+    free()
+    driver_launches = driver_phase(dev)
     for r in rows:
+        for kind, launches in driver_launches.items():
+            if r["name"] in launches:
+                r.setdefault("launches_by_path", {})[f"driver-{kind}"] = \
+                    launches[r["name"]]
         emit({"phase": "kernel", **r})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,16 @@ parameters; :func:`trace_count` counts plan-cache misses, the
 counterpart of the reference's jit traces, and the escalation bound
 (O(log R) plans per query kind) holds against it.
 
+Observability (:mod:`repro_torch.obs`, the reference's names):
+``engine.plan_request`` per query call; ``engine.plan_miss`` per new
+view-agnostic signature (the key of the reference's jitted closure
+cache); ``engine.trace`` next to every :func:`trace_count` increment;
+``engine.route.<route>`` per kNN call under the reference's route names
+(``frontier``, ``pallas-frontier`` for the frontier kernel, ``flat``;
+``QueryEngine.route_counts`` keeps the port's ``route:param``); and
+``engine.escalation_rounds`` / ``engine.escalation`` where range buffers
+escalate.
+
 kNN routes (``impl``):
 
 * ``auto``           -- ``cuda`` when the slot count ``R*C`` is at most
@@ -33,6 +43,7 @@ from __future__ import annotations
 
 import functools
 
+from .. import obs
 from ..kernels.frontier import ops as frontier_ops
 from ..kernels.knn import ops as knn_ops
 from . import queries
@@ -45,6 +56,10 @@ KNN_IMPLS = ("auto", "frontier", "cuda-frontier", "plain-frontier", "cuda",
              "plain")
 
 _STATS = {"traces": 0}
+
+# the reference's name of each kNN route, for engine.route.* counters
+OBS_ROUTES = {"frontier": "frontier", "frontier-kernel": "pallas-frontier",
+              "flat": "flat"}
 
 
 def trace_count() -> int:
@@ -75,10 +90,22 @@ def canonical_knn(d2, ids):
 # cached plans
 # ---------------------------------------------------------------------------
 
+def _traced() -> None:
+    _STATS["traces"] += 1
+    obs.count("engine.trace")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_signature(*signature) -> None:
+    """A plan's view-agnostic signature (the reference's jitted closure
+    key): its first use counts ``engine.plan_miss``."""
+    obs.count("engine.plan_miss")
+
+
 @functools.lru_cache(maxsize=None)
 def _knn_plan(q: int, dim: int, dtype: str, k: int, route: str, param,
               view_shape: tuple):
-    _STATS["traces"] += 1
+    _traced()
     if route == "frontier":
         def run(view, qpts):
             return canonical_knn(*queries.knn_impl(view, qpts, k, param))
@@ -99,7 +126,7 @@ def _knn_plan(q: int, dim: int, dtype: str, k: int, route: str, param,
 @functools.lru_cache(maxsize=None)
 def _range_count_plan(q: int, dim: int, dtype: str, max_rows: int,
                       view_shape: tuple):
-    _STATS["traces"] += 1
+    _traced()
     return lambda view, lo, hi: queries.range_count_impl(view, lo, hi,
                                                          max_rows)
 
@@ -107,7 +134,7 @@ def _range_count_plan(q: int, dim: int, dtype: str, max_rows: int,
 @functools.lru_cache(maxsize=None)
 def _range_list_plan(q: int, dim: int, dtype: str, max_rows: int, cap: int,
                      view_shape: tuple):
-    _STATS["traces"] += 1
+    _traced()
     return lambda view, lo, hi: queries.range_list_impl(view, lo, hi,
                                                         max_rows, cap)
 
@@ -155,9 +182,11 @@ class QueryEngine:
         route, param = self.plan_knn(rows, cols, impl)
         name = f"{route}:{param}"
         self.route_counts[name] = self.route_counts.get(name, 0) + 1
-        fn = _knn_plan(qpts.shape[0], dim, str(qpts.dtype), int(k), route,
-                       param, tuple(view.pts.shape))
-        return fn(view, qpts)
+        obs.count("engine.plan_request")
+        obs.count(f"engine.route.{OBS_ROUTES[route]}")
+        sig = (qpts.shape[0], dim, str(qpts.dtype), int(k), route, param)
+        _plan_signature("knn", *sig)
+        return _knn_plan(*sig, tuple(view.pts.shape))(view, qpts)
 
     def range_count(self, view: queries.LeafView, lo, hi):
         """Exact batched range count -> counts (Q,), escalating the row
@@ -166,13 +195,19 @@ class QueryEngine:
         key = ("range_count", lo.shape[0], lo.shape[-1], str(lo.dtype))
         max_rows = min(_pow2(self._buckets.get(key, self.start_rows)),
                        _pow2(rows))
+        obs.count("engine.plan_request")
+        rounds = 0
         while True:
-            fn = _range_count_plan(lo.shape[0], lo.shape[-1], str(lo.dtype),
-                                   max_rows, tuple(view.pts.shape))
+            sig = (lo.shape[0], lo.shape[-1], str(lo.dtype), max_rows)
+            _plan_signature("range_count", *sig)
+            fn = _range_count_plan(*sig, tuple(view.pts.shape))
             cnt, trunc = fn(view, lo, hi)
             if max_rows >= rows or not bool(trunc.any()):
                 self._buckets[key] = max_rows
+                obs.observe("engine.escalation_rounds", rounds)
                 return cnt
+            rounds += 1
+            obs.count("engine.escalation")
             max_rows = min(2 * max_rows, _pow2(rows))
 
     def range_list(self, view: queries.LeafView, lo, hi):
@@ -185,16 +220,22 @@ class QueryEngine:
                                                 self.start_cap))
         max_rows = min(_pow2(max_rows), _pow2(rows))
         cap = min(_pow2(cap), max_rows * cols)
+        obs.count("engine.plan_request")
+        rounds = 0
         while True:
-            fn = _range_list_plan(lo.shape[0], lo.shape[-1], str(lo.dtype),
-                                  max_rows, cap, tuple(view.pts.shape))
+            sig = (lo.shape[0], lo.shape[-1], str(lo.dtype), max_rows, cap)
+            _plan_signature("range_list", *sig)
+            fn = _range_list_plan(*sig, tuple(view.pts.shape))
             ids, cnt, rows_trunc = fn(view, lo, hi)
             need_rows = max_rows < rows and bool(rows_trunc.any())
             max_cnt = int(cnt.max()) if cnt.numel() else 0
             need_cap = cap < max_cnt
             if not (need_rows or need_cap):
                 self._buckets[key] = (max_rows, cap)
+                obs.observe("engine.escalation_rounds", rounds)
                 return ids, cnt
+            rounds += 1
+            obs.count("engine.escalation")
             if need_rows:
                 max_rows = min(2 * max_rows, _pow2(rows))
             if need_cap:

@@ -14,7 +14,12 @@ insert that overflows is recovered through the ladder
 
 PyTorch runs eagerly, so there are no update closures to cache: an
 update is the backend's function called on the tree's tensors, and
-queries go through the per-index :class:`QueryEngine`.
+queries go through the per-index :class:`QueryEngine`. For the same
+reason the reference's ``index.update_plan_miss`` counter has no event
+here and is not emitted; the capacity ladder records the reference's
+``index.grow`` / ``index.compact`` counters and ``index.recover_insert``
+span, and retried builds and rebuilds ``index.build_retry`` /
+``index.rebuild_retry`` (:mod:`repro_torch.obs`).
 
 Registered kinds: ``porth`` (the P-Orth tree), ``spac-h``, ``spac-z``,
 ``spac-m`` (alias of spac-z), ``cpam-h`` and ``cpam-z`` (dynamic: updated
@@ -35,7 +40,9 @@ from typing import Any, Callable
 
 import torch
 
+from .. import obs
 from ..device import resolve_device
+from ..obs.memory import tree_bytes
 from . import baselines, porth, queries, spac
 from .engine import QueryEngine
 
@@ -55,13 +62,6 @@ def capacity_for(n_points: int, phi: int = 32, slack: int = 4) -> int:
 def _round_capacity(rows: int) -> int:
     """Round up to a power of two (at least 2^15)."""
     return 1 << max(int(rows) - 1, 15).bit_length()
-
-
-def tree_bytes(tree) -> int:
-    """Resident bytes of a tree's tensors: shape/dtype arithmetic, never
-    a device read."""
-    return sum(v.nbytes for v in vars(tree).values()
-               if isinstance(v, torch.Tensor))
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +358,7 @@ class SpatialIndex:
                                     extra=dict(capacity_rows=rows))
             if int(tree.size) == expected:
                 return self._wrap(tree, size_hint=hint, rebuild_rows=rows)
+            obs.count("index.rebuild_retry")
             rows = 2 * rows
         raise RuntimeError(f"{self.kind}: insert of {pts.shape[0]} points "
                            f"still overflows at capacity_rows={rows}")
@@ -371,16 +372,20 @@ class SpatialIndex:
         live = int(tree.size) + pts.shape[0]
         need = _round_capacity(capacity_for(live, self.phi, b.cap_slack))
         mor = int(self._params.get("max_overflow_rows", 64))
+        recovery = obs.span("index.recover_insert", kind=self.kind).begin()
         for attempt in range(4):
             cap = max(need << attempt, 2 * tree.pts.shape[0])
+            obs.count("index.grow" if attempt == 0 else "index.compact")
             tree = (b.grow(tree, cap) if attempt == 0
                     else b.compact(tree, cap))
             mor = min(4 * mor, cap)
             out = self._run_update("insert", tree, pts, mask,
                                    extra=dict(max_overflow_rows=mor))
             if not bool(out.overflowed):
+                recovery.set(attempts=attempt + 1, capacity_rows=cap).end()
                 return out
             tree = dataclasses.replace(out, overflowed=off)
+        recovery.set(failed=True).end()
         raise RuntimeError(f"{self.kind}: insert of {pts.shape[0]} points "
                            f"still overflows at capacity_rows={cap}")
 
@@ -493,6 +498,7 @@ def make_index(kind: str, points, mask=None, *, phi: int = 32,
         if (not bool(getattr(tree, "overflowed", False))
                 and int(tree.size) == expected):
             break
+        obs.count("index.build_retry")
         # jump at least to the heuristic (explicit caps can be tiny),
         # then keep doubling
         cap = max(2 * cap, capacity_for(expected, phi, backend.cap_slack))

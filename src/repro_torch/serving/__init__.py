@@ -5,11 +5,14 @@
   deferred (replay-on-overflow) capacity check.
 * :class:`MicroBatcher` (``batcher``) -- coalesces kNN/range requests
   into pow2-padded batches; answers bit-match per-request dispatch.
-* :class:`LatencyRecorder` (``metrics``) -- per-op percentiles and
-  sustained rates.
+* :mod:`driver` / :class:`LatencyRecorder` (``metrics``) -- a workload
+  driver replaying deterministic mixed update/query traces
+  (``repro_torch.data.points.make_trace``) and reporting per-op
+  p50/p95/p99 plus sustained q/s and update-points/s.
 
-The reference's driver CLI (``repro.serving.driver``) is not ported yet;
-``chip_smoke.py`` at the repository root runs the same pipelined pattern.
+``python -m repro_torch.serving.driver --smoke --device cpu`` runs the
+whole stack on a tiny trace; as in the reference, the driver is a module
+of its own and not imported here.
 """
 
 from .batcher import MicroBatcher, Ticket  # noqa: F401

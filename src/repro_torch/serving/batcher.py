@@ -18,6 +18,12 @@ rows reach ``max_batch``, or when the oldest request has waited
 Host (numpy) requests stay on the host until the flush: one concatenate
 and one device transfer per coalesced batch. Tensor requests are
 concatenated where they live.
+
+Observability (:mod:`repro_torch.obs`, the reference's names): the
+``batcher.queue_depth`` gauge at each enqueue, ``batcher.flush.<reason>``
+per flush, and per coalesced group ``batcher.requests``, the
+``batcher.coalesce_rows`` / ``batcher.pad_rows`` / ``batcher.wait_s``
+histograms and a ``batcher.flush`` span. All host-side bookkeeping.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.engine import _pow2
 
 
@@ -132,8 +139,9 @@ class MicroBatcher:
     def _enqueue(self, key: tuple, arrays: tuple, rows: int) -> Ticket:
         t = Ticket(self)
         now = self._clock()
-        self._groups.setdefault(key, []).append((t, arrays, rows))
+        self._groups.setdefault(key, []).append((t, arrays, rows, now))
         self._pending_rows += rows
+        obs.gauge("batcher.queue_depth", self._pending_rows)
         if self._oldest is None:
             self._oldest = now
         if self._pending_rows >= self.max_batch:
@@ -166,31 +174,41 @@ class MicroBatcher:
     def flush(self, *, reason: str = "explicit") -> int:
         """Run every pending group as one pow2-padded batch; returns the
         number of engine calls. ``reason`` (size | deadline | result |
-        retarget | explicit) is counted in :attr:`flush_reasons`."""
+        retarget | explicit) is counted in :attr:`flush_reasons` and on
+        the ``batcher.flush.<reason>`` obs counter."""
         groups, self._groups = self._groups, {}
         self._pending_rows, self._oldest = 0, None
         if not groups:
             return 0
         self.flush_reasons[reason] = self.flush_reasons.get(reason, 0) + 1
+        obs.count(f"batcher.flush.{reason}")
         target = self._resolve_target()
+        now = self._clock()
         for key, reqs in groups.items():
-            self._run_group(target, key, reqs)
+            self._run_group(target, key, reqs, now)
         self.flushes += len(groups)
         return len(groups)
 
-    def _run_group(self, target, key: tuple, reqs: list) -> None:
+    def _run_group(self, target, key: tuple, reqs: list, now) -> None:
         op = key[0]
         q = sum(r[2] for r in reqs)
-        cols = [_concat_pad([r[1][i] for r in reqs], q)
-                for i in range(len(reqs[0][1]))]
-        if op == "knn":
-            outs = tuple(target.knn(cols[0], key[1], impl=key[4]))
-        elif op == "range_count":
-            outs = (target.range_count(cols[0], cols[1]),)
-        else:
-            outs = tuple(target.range_list(cols[0], cols[1]))
+        obs.count("batcher.requests", len(reqs))
+        obs.observe("batcher.coalesce_rows", q)
+        obs.observe("batcher.pad_rows", _pow2(q) - q)
+        if obs.enabled():
+            for r in reqs:
+                obs.observe("batcher.wait_s", now - r[3])
+        with obs.span("batcher.flush", op=op, rows=q, reqs=len(reqs)):
+            cols = [_concat_pad([r[1][i] for r in reqs], q)
+                    for i in range(len(reqs[0][1]))]
+            if op == "knn":
+                outs = tuple(target.knn(cols[0], key[1], impl=key[4]))
+            elif op == "range_count":
+                outs = (target.range_count(cols[0], cols[1]),)
+            else:
+                outs = tuple(target.range_list(cols[0], cols[1]))
         start = 0
-        for ticket, _, rows in reqs:
+        for ticket, _, rows, _ in reqs:
             sl = tuple(o[start: start + rows] for o in outs)
             ticket._resolve(sl if len(sl) > 1 else sl[0])
             start += rows

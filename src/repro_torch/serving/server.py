@@ -26,6 +26,14 @@ updates are queued behind them on the card.
 
 Snapshot isolation needs old versions live, so the server refuses an
 index built with ``donate=True``.
+
+Observability (:mod:`repro_torch.obs`, the reference's names): spans
+``serving.insert`` / ``serving.delete`` (dispatch), ``serving.evict_block``
+(the window's wait), ``serving.commit`` (the exposed stall; it ends with
+``obs.resolve()``, the barrier that drains deferred reads) and
+``serving.replay``; the ``server.mem.live_bytes`` / ``window_bytes``
+gauges and the ``server.mem.evicted_bytes`` / ``evictions`` counters,
+all from tensor metadata.
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ..core.index import SpatialIndex, make_index, tree_bytes
+from .. import obs
+from ..core.index import SpatialIndex, make_index
+from ..obs.memory import tree_bytes
 
 
 def _mark(index: SpatialIndex):
@@ -195,19 +205,23 @@ class SpatialServer:
     def insert(self, pts, mask=None) -> int:
         """Dispatch a batch insert as version ``head+1``; returns the new
         version id without reading the device."""
-        pts = self._as_tensor(pts)
-        new = self.head_index.insert_unchecked(pts, mask)
-        self.stats["inserts"] += 1
-        self.stats["update_points"] += self._live_rows(pts, mask)
-        return self._publish(new, ("insert", pts, mask))
+        with obs.span("serving.insert") as sp:
+            pts = self._as_tensor(pts)
+            sp.set(rows=pts.shape[0], version=self._head + 1)
+            new = self.head_index.insert_unchecked(pts, mask)
+            self.stats["inserts"] += 1
+            self.stats["update_points"] += self._live_rows(pts, mask)
+            return self._publish(new, ("insert", pts, mask))
 
     def delete(self, pts, mask=None) -> int:
         """Dispatch a batch delete as version ``head+1``."""
-        pts = self._as_tensor(pts)
-        new = self.head_index.delete_unchecked(pts, mask)
-        self.stats["deletes"] += 1
-        self.stats["update_points"] += self._live_rows(pts, mask)
-        return self._publish(new, ("delete", pts, mask))
+        with obs.span("serving.delete") as sp:
+            pts = self._as_tensor(pts)
+            sp.set(rows=pts.shape[0], version=self._head + 1)
+            new = self.head_index.delete_unchecked(pts, mask)
+            self.stats["deletes"] += 1
+            self.stats["update_points"] += self._live_rows(pts, mask)
+            return self._publish(new, ("delete", pts, mask))
 
     def _publish(self, index: SpatialIndex, op: tuple) -> int:
         self._head += 1
@@ -225,16 +239,22 @@ class SpatialServer:
             mem["window_bytes"] -= freed
             mem["evicted_bytes"] += freed
             mem["evictions"] += 1
+            obs.count("server.mem.evicted_bytes", freed)
+            obs.count("server.mem.evictions")
             # backpressure: the evicted version's work must be done
             # before more updates pile on; past the wait its sticky
             # overflow read is free and doubles as an early check
-            if _overflowed(old, self._marks.pop(v, None)):
+            with obs.span("serving.evict_block", version=v):
+                dirty = _overflowed(old, self._marks.pop(v, None))
+            if dirty:
                 self._recover()
             elif v > self._base:
                 del self._log[: v - self._base]
                 self._base, self._base_index = v, old
         mem["peak_window_bytes"] = max(mem["peak_window_bytes"],
                                        mem["window_bytes"])
+        obs.gauge("server.mem.live_bytes", mem["live_bytes"])
+        obs.gauge("server.mem.window_bytes", mem["window_bytes"])
         return self._head
 
     # -- sync points -------------------------------------------------------
@@ -243,29 +263,35 @@ class SpatialServer:
         """Barrier: wait for the head version, run the deferred overflow
         check (replaying from the last good version on overflow), and
         drop every older version. Returns the committed version id."""
-        head = self._versions[self._head]
-        if _overflowed(head, self._marks.get(self._head)):
-            head = self._recover()
-        if self._deferred_points:
-            self.stats["update_points"] += sum(
-                int(x) for x in self._deferred_points)
-            self._deferred_points = []
-        self._base, self._base_index = self._head, head
-        self._log = []
-        self._versions = OrderedDict({self._head: head})
-        self._marks = {self._head: None}
-        self._rebase_memory(head)
-        self.stats["commits"] += 1
-        return self._head
+        with obs.span("serving.commit") as sp:
+            sp.set(version=self._head, in_flight=self._head - self._base)
+            head = self._versions[self._head]
+            if _overflowed(head, self._marks.get(self._head)):
+                head = self._recover()
+            if self._deferred_points:
+                self.stats["update_points"] += sum(
+                    int(x) for x in self._deferred_points)
+                self._deferred_points = []
+            self._base, self._base_index = self._head, head
+            self._log = []
+            self._versions = OrderedDict({self._head: head})
+            self._marks = {self._head: None}
+            self._rebase_memory(head)
+            self.stats["commits"] += 1
+            # commit is THE barrier: deferred obs reads resolve here
+            obs.resolve()
+            return self._head
 
     def _recover(self) -> SpatialIndex:
         """Replay the op log from the last good version through the
         facade's synchronous recovery (grow -> retry -> compact)."""
-        idx = self._base_index
-        for op, pts, mask in self._log:
-            idx = (idx.insert(pts, mask) if op == "insert"
-                   else idx.delete(pts, mask))
-        idx.block_until_ready()
+        with obs.span("serving.replay", ops=len(self._log),
+                      base=self._base, head=self._head):
+            idx = self._base_index
+            for op, pts, mask in self._log:
+                idx = (idx.insert(pts, mask) if op == "insert"
+                       else idx.delete(pts, mask))
+            idx.block_until_ready()
         self._versions = OrderedDict({self._head: idx})
         self._marks = {self._head: None}
         self._base, self._base_index = self._head, idx
@@ -282,6 +308,8 @@ class SpatialServer:
         mem = self.mem
         mem["live_bytes"] = mem["window_bytes"] = nb
         mem["peak_window_bytes"] = max(mem["peak_window_bytes"], nb)
+        obs.gauge("server.mem.live_bytes", nb)
+        obs.gauge("server.mem.window_bytes", nb)
 
     def memory_report(self) -> dict:
         """Byte aggregates plus per-retained-version bytes (tensor
