@@ -116,6 +116,30 @@ Phases, each printed as one JSON line (``"phase": ...``):
              kind: per-op p50/p99, rates, bytes, final and expected
              size, obs counters, launches, the insert profile and, for
              spac-h, the attributed kNN split and obs-off vs obs-on p50.
+14. figures -- the paper's figures on the port: ``python -m
+             benchmarks.port.run`` at 10^7 points in a subprocess that
+             must exit 0 (fig3 over the uniform distribution and all
+             seven kinds, fig4, fig5, fig10, fig9 in 3D, the spatial
+             roofline and the frontier kernel's tile sweep at 256
+             queries; one timed rep each). Its details are held against
+             brute force on the live points each figure's updates imply
+             (regenerated from the generators' seeds): kNN distances bit
+             for bit (k = 1, 10 and 100, InD and OOD, 2D and 3D), range
+             counts and listed points exactly, and every live size (the
+             spac family's deletes may leave deleted points behind, as
+             the reference's do at scale, but lose none). The
+             frontier kernel must launch on every figure's kNN, the sieve
+             on every porth build, Morton on every zd, spac-z and cpam-z
+             build, row-bbox on the dynamic kinds' deletes; every tile of
+             the sweep must give the default tile's answers bit for bit.
+             Then fig3's paper claims as one line (a FAIL is a finding,
+             not an error), one spac-h kNN batch under
+             ``Recorder(capture_costs=True)`` (its plan must carry device
+             time and the frontier kernel), and the regression gate
+             (``python -m repro_torch.obs.regress``) three times:
+             ``--update`` into a temporary file, the gate against it (exit
+             0), and a replay of its snapshot with every time metric
+             degraded 2x (must fail). The phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -1109,9 +1133,11 @@ def insert_syncs(kind: str, dev) -> dict:
     return out
 
 
-def run_cli(args: list, timeout: int) -> subprocess.CompletedProcess:
+def run_cli(args: list, timeout: int,
+            ok: bool = True) -> subprocess.CompletedProcess:
     """``python -m <args>`` with ``src`` on the path; its output goes to
-    this script's standard error."""
+    this script's standard error. It must exit 0 (``ok``) or, with
+    ``ok=False``, with another code."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + [p for p in env.get("PYTHONPATH", "").split(
@@ -1119,7 +1145,7 @@ def run_cli(args: list, timeout: int) -> subprocess.CompletedProcess:
     out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=timeout)
     print(out.stdout, out.stderr, sep="\n", file=sys.stderr, flush=True)
-    check(out.returncode == 0, f"{args[0]} exited {out.returncode}")
+    check((out.returncode == 0) == ok, f"{args[0]} exited {out.returncode}")
     return out
 
 
@@ -1261,6 +1287,277 @@ def driver_phase(dev) -> dict:
                 "batcher": a["batcher"]}
             line["cli_s"]["attributed"] = attributed_s
         emit(line)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the paper's figures, the roofline and the regression gate
+# ---------------------------------------------------------------------------
+
+# fig3 over one distribution here (the three-distribution grid is a run
+# of its own); every section at N_MAIN points with one timed rep; the
+# tile sweep at the roofline's query count (the prep's per-block group
+# bounds are query blocks x groups: 4096 queries in blocks of 8 over
+# porth's 5M groups of 128 points would take 30 GB)
+FIG_DISTS = "uniform"
+FIG_REPS = 1
+SWEEP_NQ = 256
+# brute-force checks take this many sampled queries a call
+BRUTE_CHUNK = 32
+# kinds whose deletes run the row-bbox kernel (kd and zd rebuild)
+DYNAMIC_KINDS = ("porth", "spac-h", "spac-z", "cpam-h", "cpam-z")
+MORTON_KINDS = ("zd", "spac-z", "cpam-z")
+# The spac family's incremental deletes leave deleted points behind at
+# scale, as the reference's do (ROADMAP queue 3, root cause open): the
+# points each such delete leaves, as the card left them on these seeds
+# at N_MAIN points on an H100 (none missing). The JAX reference
+# leaves the same count as the port on the same arrays at 4 x 10^6
+# varden points (tests/spac_delete_shortfall.py). Any other count, or a
+# difference in another kind, fails.
+SPAC_LEFTOVERS = {
+    "fig3 uniform/spac-h inc_del_0.01": 61,
+    "fig3 uniform/spac-z inc_del_0.01": 53,
+    "fig3 uniform/cpam-h inc_del_0.01": 61,
+    "fig3 uniform/cpam-z inc_del_0.01": 53,
+    "fig3 varden/spac-h inc_del_0.01": 403,
+    "fig3 varden/spac-z inc_del_0.01": 211,
+    "fig3 varden/cpam-h inc_del_0.01": 403,
+    "fig3 varden/cpam-z inc_del_0.01": 211,
+    "fig9 varden/spac-h del": 14,
+    "fig9 varden/spac-z del": 76,
+}
+
+
+def _live_points(spec: dict, cache: dict, dev):
+    """The live points a figure's detail names: a slice of the
+    generator's points (regenerated from its seed), on the card."""
+    from benchmarks.port import common as bench
+    key = (spec["dist"], spec["n"], spec["seed"], spec["dim"])
+    if key not in cache:
+        cache.clear()
+        cache[key] = torch.as_tensor(
+            bench.points_for(spec["dist"], spec["n"], spec["seed"],
+                             spec["dim"]), device=dev)
+    return cache[key][: spec["stop"]]
+
+
+def brute_knn(live, qs, k: int):
+    """The k smallest direct-form f32 distances of each query (the
+    kernels' arithmetic: per-dimension difference, square, summed in
+    dimension order)."""
+    pf = live.float()
+    out = []
+    for a in range(0, qs.shape[0], BRUTE_CHUNK):
+        q = qs[a: a + BRUTE_CHUNK]
+        acc = None
+        for d in range(pf.shape[1]):
+            dd = q[:, None, d] - pf[None, :, d]
+            acc = dd * dd if acc is None else acc + dd * dd
+        out.append(torch.topk(acc, k, dim=1, largest=False).values)
+    return torch.cat(out)
+
+
+def brute_range(live, lo, hi):
+    """Per box: the int64 count of live points inside and the inside
+    mask's points."""
+    p = live.long()
+    counts = []
+    for a in range(0, lo.shape[0], BRUTE_CHUNK):
+        inside = ((p[None] >= lo[a: a + BRUTE_CHUNK, None])
+                  & (p[None] <= hi[a: a + BRUTE_CHUNK, None])).all(-1)
+        counts.append(inside.sum(1))
+    return torch.cat(counts)
+
+
+def listed_points(live, lo, hi) -> list:
+    p = live.long()
+    inside = ((p >= lo) & (p <= hi)).all(-1)
+    pts = p[inside].cpu().numpy()
+    return pts[np.lexsort(pts.T[::-1])].tolist()
+
+
+def figure_checks(details: dict, dev) -> dict:
+    """Every figure's details against brute force on the live points its
+    trace implies: kNN distances bit-equal, range counts and listed
+    points equal, live sizes as the update sequences imply."""
+    cache: dict = {}
+    out = {"knn": 0, "knn_queries": 0, "range": 0, "range_boxes": 0,
+           "listed_boxes": 0, "sizes": 0, "ks": set(), "dims": set(),
+           "spac_leftovers": {}}
+    for fig in ("fig3", "fig4", "fig5", "fig10", "fig9"):
+        for key, det in details.get(fig, {}).items():
+            if key.startswith("_"):
+                continue
+            for name, (got, want, *audit) in det.get("sizes", {}).items():
+                out["sizes"] += 1
+                if got != want:
+                    out["spac_leftovers"][f"{fig} {key} {name}"] = {
+                        "got": got, "want": want,
+                        **(audit[0] if audit else {})}
+            for name, kd in det.get("knn", {}).items():
+                live = _live_points(kd["live"], cache, dev)
+                qs = torch.tensor(kd["queries"], dtype=torch.float32,
+                                  device=dev)
+                want = brute_knn(live, qs, kd["k"])
+                got = torch.tensor(kd["d2"], dtype=torch.float32,
+                                   device=dev)
+                check(torch.equal(got, want), f"{fig} {key} {name}: kNN "
+                      f"d2 differs from the brute-force scan")
+                out["knn"] += 1
+                out["knn_queries"] += qs.shape[0]
+                out["ks"].add(kd["k"])
+                out["dims"].add(kd["live"]["dim"])
+            for group in ("range_count", "range_list"):
+                for name, rd in det.get(group, {}).items():
+                    live = _live_points(rd["live"], cache, dev)
+                    lo = torch.tensor(rd["lo"], device=dev).long()
+                    hi = torch.tensor(rd["hi"], device=dev).long()
+                    want = brute_range(live, lo, hi)
+                    check(torch.equal(torch.tensor(rd["counts"],
+                                                   device=dev).long(), want),
+                          f"{fig} {key} {name}: range counts differ from "
+                          f"an int64 brute-force count")
+                    for i, pts in enumerate(rd.get("listed", [])):
+                        check(pts == listed_points(live, lo[i], hi[i]),
+                              f"{fig} {key} {name}: box {i} listed other "
+                              f"points than brute force finds")
+                        out["listed_boxes"] += 1
+                    out["range"] += 1
+                    out["range_boxes"] += lo.shape[0]
+    del cache
+    # every size as the updates imply, except the pinned spac leftovers
+    # (listed all at once, so one run reports every count)
+    odd = {label: a for label, a in out["spac_leftovers"].items()
+           if not (a.get("missing") == 0
+                   and a.get("extra") == a["got"] - a["want"]
+                   == SPAC_LEFTOVERS.get(label))}
+    check(not odd, f"figures: live sizes other than the updates imply "
+          f"and the pinned leftovers: {odd}")
+    out["ks"], out["dims"] = sorted(out["ks"]), sorted(out["dims"])
+    check({1, 10, 100} <= set(out["ks"]) and {2, 3} <= set(out["dims"]),
+          f"figures: kNN checked at k {out['ks']}, dims {out['dims']}")
+    return out
+
+
+def figure_launches(details: dict) -> dict:
+    """Every figure's kNN ran the frontier kernel, every porth build the
+    sieve, every zd, spac-z and cpam-z build Morton, every dynamic
+    kind's delete row-bbox; returns the launches summed by kernel."""
+    total = dict.fromkeys(KERNELS, 0)
+    for fig in ("fig3", "fig4", "fig5", "fig10", "fig9"):
+        for key, det in details.get(fig, {}).items():
+            if key.startswith("_"):
+                continue
+            kind = key.split("/")[-1]
+            ops = det["launches"]
+            for op, by in ops.items():
+                for name, n in by.items():
+                    total[name] += n
+            if "knn" in ops:
+                check(ops["knn"]["knn_frontier"] > 0,
+                      f"{fig} {key}: the frontier kernel never launched")
+            if fig == "fig4":
+                check(ops.get("knn_flat", {}).get("knn_flat", 0) > 0,
+                      f"fig4 {key}: the forced flat route never launched "
+                      f"the flat kernel")
+            if kind == "porth":
+                check(ops["build"]["sieve"] > 0,
+                      f"{fig} {key}: the sieve never launched on a build")
+            if kind in MORTON_KINDS:
+                check(ops["build"]["morton"] > 0,
+                      f"{fig} {key}: Morton never launched on a build")
+            if kind in DYNAMIC_KINDS and "delete" in ops:
+                check(ops["delete"]["row_bbox"] > 0,
+                      f"{fig} {key}: row-bbox never launched on a delete")
+    return total
+
+
+def plan_cost_check(dev) -> dict:
+    """One spac-h kNN batch (main's configuration) under
+    ``Recorder(capture_costs=True)``: a ``plan.cost.knn.*`` signature
+    with device time and the frontier kernel among its launches."""
+    pts = gen.uniform(SEED, N_MAIN)
+    idx = make_index("spac-h", pts, phi=PHI, device=dev, coord_bits=20)
+    q = torch.as_tensor(gen.uniform(SEED + 7, QUERIES), device=dev)
+    with obs.recording(obs.Recorder(capture_costs=True)) as rec:
+        idx.knn(q, K)
+        sync()
+    costs = obs.costs.plan_costs(rec.counters)
+    knn = {s: c for s, c in costs.items() if s.startswith("knn.")}
+    check(knn, f"costs: no kNN plan captured ({sorted(costs)})")
+    sig = max(knn, key=lambda s: knn[s]["device_us"])
+    kernels = rec.cost_kernels[sig]
+    check(knn[sig]["device_us"] > 0, f"costs: {sig} has no device time")
+    check(any("frontier_walk" in name for name in kernels),
+          f"costs: {sig} launched {sorted(kernels)}, not the frontier "
+          f"kernel")
+    return {"sig": sig, **knn[sig], "kernels": kernels}
+
+
+def regress_gate(tmp: str) -> dict:
+    """The regression gate three times: ``--update`` into ``tmp``, the
+    gate against it (exit 0), and a replay of the gate's snapshot with
+    every time metric degraded 2x (must fail)."""
+    base, snap = f"{tmp}/regress_smoke.json", f"{tmp}/BENCH_1.json"
+    t0 = time.perf_counter()
+    run_cli(["repro_torch.obs.regress", "--update", "--baseline", base,
+             "--quiet"], timeout=600)
+    run_cli(["repro_torch.obs.regress", "--baseline", base, "--snapshot",
+             snap], timeout=600)
+    gate = json.loads(pathlib.Path(snap).read_text())
+    run_cli(["repro_torch.obs.regress", "--replay", snap, "--baseline",
+             base, "--inject-scale", "2", "--tol", "0.5", "--no-snapshot",
+             "--quiet"], timeout=120, ok=False)
+    return {"metrics": len(gate["metrics"]), "regressed": gate["regressed"],
+            "baseline_problems": gate["baseline_problems"],
+            "seconds": time.perf_counter() - t0}
+
+
+def figures_phase(dev) -> dict:
+    """``python -m benchmarks.port.run`` at N_MAIN points (fig3 over the
+    uniform distribution, one timed rep, fig4's forced routes as its
+    ``--json`` sweeps them, the frontier tile sweep), its details held
+    against brute force, fig3's claims, a plan-cost capture and the
+    regression gate; returns the launches by kernel."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        details_path = f"{tmp}/details.json"
+        run_cli(["benchmarks.port.run", "--n", str(N_MAIN), "--dists",
+                 FIG_DISTS, "--reps", str(FIG_REPS), "--block-sweep",
+                 "--sweep-nq", str(SWEEP_NQ), "--json", f"{tmp}/payloads",
+                 "--details", details_path], timeout=900)
+        details = json.loads(pathlib.Path(details_path).read_text())
+        run_s = time.perf_counter() - t0
+        routes = {name.split("_")[0] for det in details["fig4"].values()
+                  for name in det["knn"]}
+        check(routes == {"flat", "frontier", "ind", "ood"},
+              f"fig4 ran the kNN routes {sorted(routes)}")
+        checks = figure_checks(details, dev)
+        free()
+        launches = figure_launches(details)
+        sweep = details["block_sweep"]
+        check(sweep["all_bit_equal"], "block sweep: a tile's answers "
+              "differ from the default tile's")
+        emit({"phase": "figures-claims", "dists": FIG_DISTS,
+              "claims": details["fig3"]["_validate"]})
+        emit({"phase": "figures-block-sweep", "n": N_MAIN,
+              "queries": SWEEP_NQ, **sweep})
+        costs = plan_cost_check(dev)
+        free()
+        gate = regress_gate(tmp)
+    emit({"phase": "figures", "n": N_MAIN,
+          # the cuts against the full grid: reps, fig3's distributions
+          "reduced": {"reps": FIG_REPS, "of_reps": 3,
+                      "fig3_dists": FIG_DISTS},
+          "sections_s": details["sections_s"], "run_s": run_s,
+          "checks": checks, "launches": launches,
+          "peak_bytes": {fig: {key: det.get("peak_bytes")
+                               for key, det in details[fig].items()
+                               if not key.startswith("_")}
+                         for fig in ("fig3", "fig4", "fig5", "fig10",
+                                     "fig9")},
+          "roofline_plans": details["roofline"], "plan_cost": costs,
+          "regress": gate, "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -1795,11 +2092,16 @@ def main() -> int:
     del main_run, porth_run, kd_run, zd_run, flat_run, spacz_pts, spacz
     free()
     driver_launches = driver_phase(dev)
+    free()
+    fig_launches = figures_phase(dev)
     for r in rows:
         for kind, launches in driver_launches.items():
             if r["name"] in launches:
                 r.setdefault("launches_by_path", {})[f"driver-{kind}"] = \
                     launches[r["name"]]
+        if r["name"] in fig_launches:
+            r.setdefault("launches_by_path", {})["figures"] = \
+                fig_launches[r["name"]]
         emit({"phase": "kernel", **r})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -20,9 +20,11 @@ view-agnostic signature (the key of the reference's jitted closure
 cache); ``engine.trace`` next to every :func:`trace_count` increment;
 ``engine.route.<route>`` per kNN call under the reference's route names
 (``frontier``, ``pallas-frontier`` for the frontier kernel, ``flat``;
-``QueryEngine.route_counts`` keeps the port's ``route:param``); and
+``QueryEngine.route_counts`` keeps the port's ``route:param``);
 ``engine.escalation_rounds`` / ``engine.escalation`` where range buffers
-escalate.
+escalate; and, under ``Recorder(capture_costs=True)``, each plan's
+device time and launches (:mod:`repro_torch.obs.costs`) under the
+reference's signature strings (:func:`knn_signature`).
 
 kNN routes (``impl``):
 
@@ -60,6 +62,22 @@ _STATS = {"traces": 0}
 # the reference's name of each kNN route, for engine.route.* counters
 OBS_ROUTES = {"frontier": "frontier", "frontier-kernel": "pallas-frontier",
               "flat": "flat"}
+
+
+# the reference's (route, param) spelling of each of the port's, for
+# plan-cost signatures: the port's cuda kernels are the reference's
+# auto-routed kernels, their plain versions its ref / interpret bodies
+OBS_PARAMS = {("frontier-kernel", "cuda"): "auto",
+              ("frontier-kernel", "plain"): "pallas-interpret",
+              ("flat", "cuda"): "auto", ("flat", "plain"): "ref"}
+
+
+def knn_signature(q: int, k: int, route: str, param, rows: int,
+                  cols: int) -> str:
+    """The reference's plan-cost signature of a kNN plan."""
+    ref_param = OBS_PARAMS.get((route, param), param)
+    return (f"knn.q{q}.k{int(k)}.{OBS_ROUTES[route]}-{ref_param}"
+            f".v{rows}x{cols}")
 
 
 def trace_count() -> int:
@@ -186,7 +204,11 @@ class QueryEngine:
         obs.count(f"engine.route.{OBS_ROUTES[route]}")
         sig = (qpts.shape[0], dim, str(qpts.dtype), int(k), route, param)
         _plan_signature("knn", *sig)
-        return _knn_plan(*sig, tuple(view.pts.shape))(view, qpts)
+        plan = _knn_plan(*sig, tuple(view.pts.shape))
+        if obs.costs.enabled():
+            obs.costs.capture(plan, (view, qpts), knn_signature(
+                qpts.shape[0], k, route, param, rows, cols))
+        return plan(view, qpts)
 
     def range_count(self, view: queries.LeafView, lo, hi):
         """Exact batched range count -> counts (Q,), escalating the row
@@ -201,6 +223,10 @@ class QueryEngine:
             sig = (lo.shape[0], lo.shape[-1], str(lo.dtype), max_rows)
             _plan_signature("range_count", *sig)
             fn = _range_count_plan(*sig, tuple(view.pts.shape))
+            if obs.costs.enabled():
+                obs.costs.capture(fn, (view, lo, hi),
+                                  f"range_count.q{lo.shape[0]}.r{max_rows}"
+                                  f".v{rows}x{view.pts.shape[1]}")
             cnt, trunc = fn(view, lo, hi)
             if max_rows >= rows or not bool(trunc.any()):
                 self._buckets[key] = max_rows
@@ -226,6 +252,10 @@ class QueryEngine:
             sig = (lo.shape[0], lo.shape[-1], str(lo.dtype), max_rows, cap)
             _plan_signature("range_list", *sig)
             fn = _range_list_plan(*sig, tuple(view.pts.shape))
+            if obs.costs.enabled():
+                obs.costs.capture(fn, (view, lo, hi),
+                                  f"range_list.q{lo.shape[0]}.r{max_rows}"
+                                  f".c{cap}.v{rows}x{cols}")
             ids, cnt, rows_trunc = fn(view, lo, hi)
             need_rows = max_rows < rows and bool(rows_trunc.any())
             max_cnt = int(cnt.max()) if cnt.numel() else 0

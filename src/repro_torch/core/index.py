@@ -10,7 +10,9 @@ plus a thin handle, so callers write
 and never touch ``capacity_rows``, ``overflowed``, ``grow`` or
 ``compact`` by hand. Row capacity comes from :func:`capacity_for`; an
 insert that overflows is recovered through the ladder
-``grow -> retry -> compact -> retry``.
+``retry -> compact -> grow`` (:meth:`SpatialIndex._recover_insert`),
+which differs from the reference's where the reference would double
+capacity while the heuristic still covers the live points.
 
 PyTorch runs eagerly, so there are no update closures to cache: an
 update is the backend's function called on the tree's tensors, and
@@ -36,6 +38,7 @@ to CUDA and raises on a host without it (see :mod:`repro_torch.device`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -75,8 +78,9 @@ class Backend:
     mask, **params)`` and ``resolve(params, points)`` to fill
     data-dependent defaults. ``dynamic`` backends update in place (fixed
     arrays and an ``overflowed`` flag) and provide ``grow``/``compact``
-    for capacity recovery; rebuild backends re-run ``build`` and take
-    ``capacity_rows`` as an update param instead."""
+    for capacity recovery and ``overflow_rows(tree, pts, mask)``, the
+    rows an insert would split; rebuild backends re-run ``build`` and
+    take ``capacity_rows`` as an update param instead."""
     name: str
     build: Callable[..., Any]
     insert: Callable[..., Any]
@@ -84,6 +88,7 @@ class Backend:
     dynamic: bool
     grow: Callable[..., Any] | None = None
     compact: Callable[..., Any] | None = None
+    overflow_rows: Callable[..., Any] | None = None
     cap_slack: int = 4
     build_params: tuple[str, ...] = ()
     insert_params: tuple[str, ...] = ()
@@ -140,7 +145,7 @@ def _porth_insert(tree, pts, mask, *, max_overflow_rows):
 register_backend(Backend(
     name="porth", build=_porth_build, insert=_porth_insert,
     delete=porth.delete, dynamic=True, grow=porth.grow,
-    compact=porth.compact, cap_slack=8,
+    compact=porth.compact, overflow_rows=porth.overflow_rows, cap_slack=8,
     build_params=("root_lo", "root_hi", "lam", "rounds"),
     insert_params=("max_overflow_rows",),
     defaults=dict(root_lo=None, root_hi=None, lam=None, rounds=5,
@@ -168,7 +173,8 @@ for _name, _curve, _sort in (("spac-h", "hilbert", False),
     register_backend(Backend(
         name=_name, build=_spac_build, insert=_spac_insert,
         delete=spac.delete, dynamic=True, grow=spac.grow,
-        compact=spac.compact, cap_slack=4,
+        compact=spac.compact, overflow_rows=spac.overflow_rows,
+        cap_slack=4,
         build_params=("curve", "bits", "coord_bits"),
         insert_params=("max_overflow_rows", "sort_rows"),
         defaults=dict(curve=_curve, bits=16, coord_bits=30,
@@ -276,6 +282,11 @@ class SpatialIndex:
         kw = {k: self._params[k] for k in names}
         kw.update(extra or {})
         fn = b.insert if op == "insert" else b.delete
+        if obs.costs.enabled():
+            # per-plan cost under the reference's update signature
+            obs.costs.capture(functools.partial(fn, **kw), (tree, pts, mask),
+                              f"update.{self.kind}.{op}.m{pts.shape[0]}"
+                              f".d{pts.shape[1]}.r{tree.pts.shape[0]}")
         return fn(tree, pts, mask, **kw)
 
     # -- introspection -----------------------------------------------------
@@ -364,21 +375,46 @@ class SpatialIndex:
                            f"still overflows at capacity_rows={rows}")
 
     def _recover_insert(self, failed_tree, pts, mask):
-        """The grow -> retry -> compact ladder (inserts are all-or-nothing,
-        so the failed tree holds the old contents)."""
+        """The retry -> compact -> grow ladder (inserts are all-or-nothing,
+        so the failed tree holds the old contents).
+
+        Every retry covers the rows the insert splits: its
+        ``max_overflow_rows`` is raised to :attr:`Backend.overflow_rows`
+        (one device read an attempt). When :func:`capacity_for` no longer
+        covers the live points, capacity grows at once, to the size the
+        reference's ladder gives (at least twice the rows, compacting at
+        twice that again on a second failure). Otherwise the first retry
+        keeps the capacity, the second compacts at it (a compaction that
+        does not fit is dropped), and only later ones grow. The
+        reference doubles capacity on every failure; with its default 64
+        rows an insert of 10^5 points into 10^7 splits thousands, and
+        the doublings ran the card out of memory."""
         b = self._backend
         off = torch.zeros((), dtype=torch.bool, device=self.device)
         tree = dataclasses.replace(failed_tree, overflowed=off)
+        rows = tree.pts.shape[0]
         live = int(tree.size) + pts.shape[0]
+        grow_at = 0 if capacity_for(live, self.phi, b.cap_slack) > rows else 2
         need = _round_capacity(capacity_for(live, self.phi, b.cap_slack))
         mor = int(self._params.get("max_overflow_rows", 64))
         recovery = obs.span("index.recover_insert", kind=self.kind).begin()
         for attempt in range(4):
-            cap = max(need << attempt, 2 * tree.pts.shape[0])
-            obs.count("index.grow" if attempt == 0 else "index.compact")
-            tree = (b.grow(tree, cap) if attempt == 0
-                    else b.compact(tree, cap))
-            mor = min(4 * mor, cap)
+            cap = (rows if attempt < grow_at else
+                   max(need << (attempt - grow_at), 2 * tree.pts.shape[0]))
+            if attempt == 0:
+                if cap > rows:
+                    obs.count("index.grow")
+                    tree = b.grow(tree, cap)
+            else:
+                obs.count("index.compact")
+                packed = b.compact(tree, cap)
+                # a rebuild that does not fit holds part of the points:
+                # keep the tree as it was (the next attempt grows)
+                if (bool(packed.overflowed)
+                        or int(packed.size) != int(tree.size)):
+                    continue
+                tree = packed
+            mor = min(max(mor, int(b.overflow_rows(tree, pts, mask))), cap)
             out = self._run_update("insert", tree, pts, mask,
                                    extra=dict(max_overflow_rows=mor))
             if not bool(out.overflowed):

@@ -513,6 +513,20 @@ def insert(tree: POrthTree, new_pts, new_mask=None, *,
     return _select(ok_all, new_tree, failed)
 
 
+def overflow_rows(tree: POrthTree, new_pts, new_mask=None):
+    """Rows an insert of ``new_pts`` would re-sieve: the count its
+    ``max_overflow_rows`` must cover (0-d device tensor)."""
+    m = new_pts.shape[0]
+    if new_mask is None:
+        new_mask = torch.ones(m, dtype=torch.bool, device=new_pts.device)
+    R, C = tree.capacity_rows, tree.row_capacity
+    pkeys = _point_keys(tree, new_pts.to(tree.pts.dtype))
+    row_of, contained = _route(tree, torch.where(new_mask, pkeys, KEY_MAX),
+                               new_mask)
+    adds = _add_drop(R, torch.where(contained, row_of, R), contained)
+    return ((tree.count + adds > C) & tree.active).sum()
+
+
 # ---------------------------------------------------------------------------
 # batch deletion
 # ---------------------------------------------------------------------------

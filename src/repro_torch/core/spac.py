@@ -347,6 +347,20 @@ def insert(tree: SpacTree, new_pts, new_mask=None, *,
         for f in FIELDS})
 
 
+def overflow_rows(tree: SpacTree, new_pts, new_mask=None):
+    """Rows an insert of ``new_pts`` would split: the count its
+    ``max_overflow_rows`` must cover (0-d device tensor)."""
+    m = new_pts.shape[0]
+    if new_mask is None:
+        new_mask = torch.ones(m, dtype=torch.bool, device=new_pts.device)
+    R, C = tree.capacity_rows, tree.row_capacity
+    codes = _encode(new_pts.to(torch.int32), tree.curve, tree.bits,
+                    tree.coord_bits)
+    row_of = torch.where(new_mask, _route(tree, codes), R)
+    adds = _add_drop(R, row_of, new_mask)
+    return (tree.count + adds > C).sum()
+
+
 # ---------------------------------------------------------------------------
 # batch deletion
 # ---------------------------------------------------------------------------

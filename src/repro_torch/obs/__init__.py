@@ -65,17 +65,22 @@ Instrumented (counter and span names are the reference's):
                                       (``memory_snapshots=True``)
 ``lat.<op>``                          the driver's latency histograms
                                       (``serving.metrics``)
+``plan.cost.<sig>.*``                 per-plan device time and kernel
+                                      launches (``Recorder(capture_costs
+                                      =True)``, :mod:`.costs`)
 ====================================  =================================
 
 Not emitted: ``index.update_plan_miss`` (eager PyTorch compiles no
-update closures) and ``plan.cost.*`` (no compiled program whose cost
-could be read; ``Recorder(capture_costs=True)`` raises).
+update closures). The reference's ``plan.cost.<sig>.flops|bytes`` come
+from compiled HLO, which the port does not have: its per-plan costs are
+the profiler's device time and launches (:mod:`repro_torch.obs.costs`).
 """
 
 from __future__ import annotations
 
 import contextlib
 
+from . import costs
 from .export import (chrome_trace, jsonl_records, write_chrome_trace,
                      write_jsonl)
 from .memory import fmt_bytes, tree_bytes
@@ -86,7 +91,7 @@ __all__ = [
     "install", "uninstall", "recording", "enabled", "recorder",
     "span", "count", "gauge", "observe", "defer", "resolve",
     "chrome_trace", "jsonl_records", "write_chrome_trace", "write_jsonl",
-    "tree_bytes", "fmt_bytes",
+    "tree_bytes", "fmt_bytes", "costs",
 ]
 
 # single mutable slot so the disabled-path check is one dict lookup

@@ -213,22 +213,23 @@ class Recorder:
       ``torch.cuda.memory_stats``; that call queries the device runtime,
       so it is made only inside ``resolve``.
 
-    ``capture_costs=True`` (the reference's per-plan XLA cost capture)
-    raises ``NotImplementedError``: the port has no compiled programs
-    whose cost analysis could be read (ROADMAP queue 1, item 2).
+    * ``capture_costs`` -- :mod:`repro_torch.obs.costs` runs each new
+      query/update plan once more under ``torch.profiler`` at its
+      plan-miss site and records ``plan.cost.<sig>.device_us`` and
+      ``.launches``; ``_cost_sigs`` tracks the signatures captured and
+      ``cost_kernels`` their kernels by name.
     """
 
     def __init__(self, clock=time.perf_counter, max_samples: int = 8192,
                  keep_events: bool = True, capture_costs: bool = False,
                  memory_snapshots: bool = False):
-        if capture_costs:
-            raise NotImplementedError(
-                "Recorder(capture_costs=True): per-plan costs are not "
-                "ported (ROADMAP queue 1, item 2)")
         self.clock = clock
         self.keep_events = keep_events
         self.max_samples = max_samples
         self.memory_snapshots = memory_snapshots
+        self.capture_costs = capture_costs
+        self._cost_sigs: set[str] = set()  # plan sigs already captured
+        self.cost_kernels: dict[str, dict[str, int]] = {}
         self.events: list[dict] = []       # completed spans, in order
         self.counters: dict[str, float] = {}
         self.gauges: dict[str, dict] = {}  # name -> {value, max, n}
@@ -366,6 +367,8 @@ class Recorder:
             "hists": {k: v.to_dict()
                       for k, v in sorted(self.hists.items())},
             "spans": self.span_summary(),
+            **({"plan_kernels": dict(sorted(self.cost_kernels.items()))}
+               if self.cost_kernels else {}),
         }
 
     def span_summary(self) -> dict:

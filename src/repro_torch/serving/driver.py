@@ -302,13 +302,34 @@ def _p50(stats: dict | None) -> float:
     return float((stats or {}).get("p50_ms", 0.0))
 
 
-def _cost_model_section() -> dict:
-    """The reference's expected-vs-observed cost section, with nothing
-    captured: per-plan costs are not ported (ROADMAP queue 1, item 2),
-    so every entry is null, as the reference reports a run that
-    captured none."""
-    return {"plan_costs": {}, "knn_plan_sig": None, "knn_plan_bytes": None,
-            "knn_expected_device_ms": None, "rate_source": None}
+def _cost_model_section(rec: obs.Recorder) -> dict:
+    """Expected-vs-observed device time from the captured plan costs.
+
+    The obs-on run captures each plan once (``plan.cost.*``, see
+    :mod:`repro_torch.obs.costs`) during its warm-up. The reference
+    turns the kNN plan's compiled bytes into an expected time through
+    the roofline baseline's byte rate; the port measures the plan's
+    device time directly, so the expected device time of one kNN batch
+    is the captured plan's ``device_us``: the kNN plan with the most of
+    it, the converged one. Compare it with the observed wait to see what
+    the device does beyond its kernels' time (launch gaps, queueing)."""
+    costs = obs.costs.plan_costs(rec.counters)
+    out = {"plan_costs": costs, "knn_plan_sig": None, "knn_plan_bytes": None,
+           "knn_plan_device_us": None, "knn_plan_launches": None,
+           "knn_plan_kernels": None, "knn_expected_device_ms": None,
+           "rate_source": None}
+    knn = {s: c for s, c in costs.items() if s.startswith("knn.")}
+    if not knn:
+        return out
+    sig = max(knn, key=lambda s: knn[s].get("device_us", 0))
+    out.update(knn_plan_sig=sig,
+               knn_plan_device_us=knn[sig].get("device_us", 0),
+               knn_plan_launches=knn[sig].get("launches", 0),
+               knn_plan_kernels=rec.cost_kernels.get(sig),
+               knn_expected_device_ms=knn[sig].get("device_us", 0) / 1e3,
+               rate_source="plan.cost device_us (torch.profiler, one "
+                           "warm-up call of the plan)")
+    return out
 
 
 def run_attributed(kinds=DEFAULT_KINDS, scenario: str = "uniform",
@@ -324,7 +345,10 @@ def run_attributed(kinds=DEFAULT_KINDS, scenario: str = "uniform",
     for kind in kinds:
         assert not obs.enabled(), "attributed baseline needs obs off"
         off = run_one(kind, scenario, cfg, device=device)
-        with obs.recording(obs.Recorder()) as rec_obs:
+        # capture_costs: the obs-on run also profiles each plan once, at
+        # its first call (in the warm-up, so measured percentiles never
+        # see it)
+        with obs.recording(obs.Recorder(capture_costs=True)) as rec_obs:
             on = run_one(kind, scenario, cfg, device=device)
             report = rec_obs.report()
         hists, counters = report["hists"], report["counters"]
@@ -373,7 +397,7 @@ def run_attributed(kinds=DEFAULT_KINDS, scenario: str = "uniform",
                             if k.startswith("batcher.flush.")},
             },
             "cost_model": {
-                **_cost_model_section(),
+                **_cost_model_section(rec_obs),
                 "knn_device_wait_observed_ms":
                     _p50(lat_on.get("knn_wait")),
             },

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro.core import index as jindex
+from repro_torch import obs
 from repro_torch.core import (BACKENDS, baselines, get_backend, index,
                               make_index, porth, spac)
 
@@ -102,6 +103,57 @@ def test_recovery_ladder_bit_equal():
     gone = idx.delete(PTS[:100])
     assert_same_tree(gone, ref.delete(jnp.asarray(PTS[:100])))
     assert len(gone) == total - 100 and len(idx) == total   # functional
+
+
+@pytest.mark.parametrize("kind,n,m", [("spac-h", 4000, 6000),
+                                      ("porth", 40_000, 40_000)])
+def test_ladder_covers_the_split_rows_without_growing(kind, n, m):
+    """An insert that splits more rows than ``max_overflow_rows`` while
+    :func:`capacity_for` still covers the live points is retried at the
+    same capacity with the rows it splits (``Backend.overflow_rows``,
+    which is tight: one row fewer fails). The tree is bit-equal to the
+    reference facade's given those rows; the reference's own ladder
+    would double the capacity. (P-Orth leaves hold a point or two, so it
+    takes more points than spac to split that many rows.)"""
+    rng = np.random.default_rng(3)
+    pts = rng.integers(0, 1 << 20, size=(n, 2)).astype(np.int32)
+    batch = rng.integers(0, 1 << 20, size=(m, 2)).astype(np.int32)
+    kw = dict(phi=PHI, capacity_points=4 * (n + m),
+              **({} if kind == "porth" else {"coord_bits": 20}))
+    idx = make_index(kind, pts, device="cpu", **kw)
+    new = torch.as_tensor(batch)
+    split = int(get_backend(kind).overflow_rows(idx.tree, new))
+    assert split > 64
+    mod = porth if kind == "porth" else spac
+    for rows, fails in ((split - 1, True), (split, False)):
+        out = mod.insert(idx.tree, new, max_overflow_rows=rows)
+        assert bool(out.overflowed) is fails
+    got = idx.insert(batch)
+    assert got.capacity_rows == idx.capacity_rows and len(got) == n + m
+    ref = jindex.make_index(kind, jnp.asarray(pts), max_overflow_rows=split,
+                            **kw).insert(jnp.asarray(batch))
+    assert_same_tree(got, ref)
+
+
+def test_ladder_drops_a_compaction_that_does_not_fit():
+    """P-Orth at phi=32 under the figures' incremental procedure (half
+    built at the capacity for all, the rest inserted in batches): the
+    last insert needs more rows than :func:`capacity_for` gives, so the
+    compaction at the same capacity does not fit; the ladder drops it,
+    grows, and every point stays."""
+    pts = np.random.default_rng(4).integers(
+        0, 1 << 20, size=(4000, 2)).astype(np.int32)
+    idx = make_index("porth", pts[:2000], phi=32, capacity_points=4000,
+                     device="cpu")
+    rows = idx.capacity_rows
+    with obs.recording(obs.Recorder()) as rec:
+        for b in range(2000, 4000, 400):
+            idx = idx.insert(pts[b: b + 400])
+    assert rec.counters["index.compact"] >= 2 and idx.capacity_rows > rows
+    live, ok = idx.extract_points()
+    got = live[ok].numpy()
+    np.testing.assert_array_equal(got[np.lexsort(got.T)],
+                                  pts[np.lexsort(pts.T)])
 
 
 def test_insert_unchecked_keeps_the_sticky_flag():

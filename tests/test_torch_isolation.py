@@ -1,4 +1,5 @@
-"""The port stands alone: no module of ``repro_torch`` and no line of
+"""The port stands alone: no module of ``repro_torch``, of
+``benchmarks/port`` or ``examples/port`` and no line of
 ``chip_smoke.py`` (or of the card-only tests) imports ``jax`` or the
 ``repro`` package (not even its jax-free modules), importing the port
 leaves neither in ``sys.modules``, and the entry points refuse to fall
@@ -18,7 +19,9 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"] + \
+    sorted((REPO / "benchmarks" / "port").glob("*.py")) + \
+    sorted((REPO / "examples" / "port").glob("*.py"))
 MODULES = sorted(
     ".".join(p.relative_to(REPO / "src").with_suffix("").parts)
     .removesuffix(".__init__") for p in PORT.rglob("*.py"))

@@ -221,9 +221,24 @@ def test_deferred_tensors_are_read_only_in_resolve(monkeypatch):
     assert rec.report()["counters"]["engine.plan_request"] == 1
 
 
-def test_capture_costs_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        obs.Recorder(capture_costs=True)
+def test_capture_costs_records_each_plan_once():
+    """``Recorder(capture_costs=True)`` (once refused) runs a plan under
+    the profiler at its first signature and records its device time and
+    launches; the same signature is not captured twice."""
+    calls = []
+
+    def plan(x):
+        calls.append(1)
+        return (x * 2).sum()
+
+    with obs.recording(obs.Recorder(capture_costs=True)) as rec:
+        assert obs.costs.capture(plan, (torch.ones(64),), "knn.test")
+        assert not obs.costs.capture(plan, (torch.ones(64),), "knn.test")
+    assert len(calls) == 1
+    assert rec.capture_costs and rec.counters["plan.cost.captured"] == 1
+    got = obs.costs.plan_costs(rec.counters)["knn.test"]
+    assert got["device_us"] > 0 and got["launches"] >= 1
+    assert rec.report()["plan_kernels"]["knn.test"]
 
 
 class PortObsDeferredSync(ObsDeferredSync):
@@ -240,7 +255,7 @@ def _rule_diagnostics(sources: dict) -> list:
 
 
 def test_obs_deferred_sync_rule_covers_the_port():
-    assert len(OBS_SOURCES) == 5
+    assert len(OBS_SOURCES) == 7
     diags = _rule_diagnostics({str(p): p.read_text() for p in OBS_SOURCES})
     assert not diags, [d.render() for d in diags]
     planted = ("import torch\n\ndef peek(x):\n    return x.item()\n\n"
