@@ -116,11 +116,34 @@ Phases, each printed as one JSON line (``"phase": ...``):
              kind: per-op p50/p99, rates, bytes, final and expected
              size, obs counters, launches, the insert profile and, for
              spac-h, the attributed kNN split and obs-off vs obs-on p50.
-14. figures -- the paper's figures on the port: ``python -m
+14. dist   -- the mesh-sharded index: ``simulate_mesh(8)``, 8 lanes of
+             the card, each holding one key-range shard. Per kind
+             (spac-h at coord_bits=20, porth) the serving loop of phase 4 at
+             10^7 points (1 warm-up and 2 measured steps, inserts under
+             sync debug mode "error"): every shard's kNN must take the
+             frontier kernel, porth's build and inserts the sieve, the
+             deletes row-bbox; the last step's sampled answers are
+             checked as in 5 and all its answers against a single-device
+             index built over the same live points (d2 bit for bit,
+             counts equal). Then a small mesh (N_FLAT points over 8
+             lanes, R*C <= 2^15 a shard) through the flat kernel,
+             checked the same way, and the driver's CLI with ``--mesh 8``
+             at the driver phase's size (spac-h and porth): one line per
+             kind with per-op p50/p99, rates, peak allocated bytes,
+             recoveries by step, the shard sizes and the launches.
+             Per kind, ``profile-dist-*``: one insert and one delete of
+             10^5 points and one kNN call of 4096 queries on the last
+             step's index, beside the single-device index over the same
+             points: host time to return, time to a sync, kernels'
+             device time and launches (``torch.profiler``), the routing
+             exchange apart from the shard-local updates, the frontier
+             calls apart from the merge.
+15. figures -- the paper's figures on the port: ``python -m
              benchmarks.port.run`` at 10^7 points in a subprocess that
              must exit 0 (fig3 over the uniform distribution and all
-             seven kinds, fig4, fig5, fig10, fig9 in 3D, the spatial
-             roofline and the frontier kernel's tile sweep at 256
+             seven kinds, fig4 with its forced chunked-frontier and
+             flat routes (``--json``), fig5, fig10, fig9 in 3D, the
+             spatial roofline and the frontier kernel's tile sweep at 64
              queries; one timed rep each). Its details are held against
              brute force on the live points each figure's updates imply
              (regenerated from the generators' seeds): kNN distances bit
@@ -130,16 +153,19 @@ Phases, each printed as one JSON line (``"phase": ...``):
              the reference's do at scale, but lose none). The
              frontier kernel must launch on every figure's kNN, the sieve
              on every porth build, Morton on every zd, spac-z and cpam-z
-             build, row-bbox on the dynamic kinds' deletes; every tile of
+             build, row-bbox on the dynamic kinds' deletes, the flat
+             kernel on fig4's forced flat route; every tile of
              the sweep must give the default tile's answers bit for bit.
              Then fig3's paper claims as one line (a FAIL is a finding,
              not an error), one spac-h kNN batch under
              ``Recorder(capture_costs=True)`` (its plan must carry device
              time and the frontier kernel), and the regression gate
              (``python -m repro_torch.obs.regress``) three times:
-             ``--update`` into a temporary file, the gate against it (exit
-             0), and a replay of its snapshot with every time metric
-             degraded 2x (must fail). The phase prints its seconds.
+             ``--update`` into a temporary file (the smoke tier, its
+             ``dist`` suite included), the gate collecting the smoke tier
+             anew against it (exit 0), and a replay of the gate's
+             snapshot with every time metric degraded 2x (must fail).
+             The phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -169,14 +195,17 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs, obs  # noqa: E402
-from repro_torch.core import (baselines, make_index, porth,  # noqa: E402
-                              queries)
+from repro_torch.configs import platform  # noqa: E402
+from repro_torch.core import (baselines, distributed,  # noqa: E402
+                              make_index, porth, queries, spac)
+from repro_torch.core.index import DistributedIndex  # noqa: E402
 from repro_torch.data import points as gen  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bbox import kernel as bk  # noqa: E402
 from repro_torch.kernels.flash_attn import kernel as fak  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import attention_plain  # noqa: E402
 from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
+from repro_torch.kernels.frontier import ops as frontier_ops  # noqa: E402
 from repro_torch.kernels.frontier import prep, tuning  # noqa: E402
 from repro_torch.kernels.knn import kernel as kk  # noqa: E402
 from repro_torch.kernels.knn import ref as kref  # noqa: E402
@@ -294,6 +323,13 @@ def free() -> None:
     torch.cuda.empty_cache()
 
 
+def capacity_rows(index):
+    """Row capacity of a local head; of each shard on a distributed one."""
+    if isinstance(index, DistributedIndex):
+        return [t.pts.shape[0] for t in index.tree]
+    return index.capacity_rows
+
+
 @contextlib.contextmanager
 def sync_debug_error():
     """Raise on any host-device synchronisation inside the block."""
@@ -389,7 +425,7 @@ def run_server(name: str, kind: str, n: int, batch: int, steps: int,
     final = len(srv.head_index)
     out = {
         "phase": name, "kind": kind, "n": n, "phi": PHI,
-        "build_params": {k: v for k, v in build_kw.items()},
+        "build_params": {k: v for k, v in build_kw.items() if k != "mesh"},
         "window": WINDOW, "steps": steps, "warmup": warmup,
         "delete_per_step": batch, "insert_per_step": batch,
         "queries_per_step": {"knn": QUERIES, "range_count": QUERIES},
@@ -400,7 +436,7 @@ def run_server(name: str, kind: str, n: int, batch: int, steps: int,
         "query_per_s": (rec.count("knn") + rec.count("range")) / wall,
         "update_pts_per_s": measured_updates / wall,
         "final_size": final, "expected_size": trace.final_size,
-        "capacity_rows": srv.head_index.capacity_rows,
+        "capacity_rows": capacity_rows(srv.head_index),
         "version_bytes": srv.head_index.nbytes,
         "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
         "routes": dict(srv.head_index.engine.route_counts),
@@ -408,6 +444,10 @@ def run_server(name: str, kind: str, n: int, batch: int, steps: int,
         "recoveries": srv.stats["recoveries"],
         "inserts_under_sync_debug_error": steps if sync_free else 0,
     }
+    if isinstance(srv.head_index, DistributedIndex):
+        out["lanes"] = srv.head_index.mesh.size
+        out["shard_points"] = srv.head_index.shard_sizes().tolist()
+        out["dropped"] = int(srv.head_index.dropped)
     check(final == trace.final_size,
           f"{name}: final size {final} != trace count {trace.final_size}")
     knn_d2 = torch.cat([a[0] for a in knn])
@@ -424,7 +464,7 @@ def run_server(name: str, kind: str, n: int, batch: int, steps: int,
 def brute_check(name: str, run: dict, n_check: int, dev) -> dict:
     """kNN d2 against a direct-form f32 scan over the snapshot's live
     points (bit for bit); range counts against an int64 count."""
-    pts, ok = queries.flatten_view(run["snap"].index.view())
+    pts, ok = run["snap"].index.extract_points()
     live = pts[ok].float()                                   # (n, 2)
     live64 = pts[ok].long()
     rng = np.random.default_rng(SEED + 11)
@@ -1291,17 +1331,269 @@ def driver_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the mesh-sharded index and distributed serving
+# ---------------------------------------------------------------------------
+
+DIST_LANES = 8
+DIST_STEPS = 2            # measured steps of the in-process loop
+
+
+def one_device_index(kind: str, run: dict, dev, **build_kw):
+    """A single-device index over the live points of the last step's
+    distributed snapshot."""
+    pts, ok = run["snap"].index.extract_points()
+    return make_index(kind, pts[ok], phi=PHI, device=dev, **build_kw)
+
+
+def same_as_one_device(name: str, kind: str, run: dict, local,
+                       dev) -> dict:
+    """The distributed answers of the last step (kNN d2 and range counts
+    of every request) equal a single-device index's over the same live
+    points."""
+    d2, _ = local.knn(torch.as_tensor(run["qpts"], device=dev), K)
+    cnt = local.range_count(torch.as_tensor(run["lo"], device=dev),
+                            torch.as_tensor(run["hi"], device=dev))
+    out = {"phase": f"single-device-{name}", "kind": kind,
+           "live_points": len(local), "queries": int(d2.shape[0]),
+           "knn_d2_bit_equal": bool(torch.equal(d2, run["knn_d2"])),
+           "range_count_equal": bool(torch.equal(cnt.long(),
+                                                 run["counts"].long()))}
+    emit(out)
+    check(out["knn_d2_bit_equal"], f"{name}: distributed kNN d2 differ "
+          "from a single-device index's")
+    check(out["range_count_equal"], f"{name}: distributed range counts "
+          "differ from a single-device index's")
+    return out
+
+
+def _subtree(event):
+    """A profiler event and every event under it (host side)."""
+    yield event
+    for child in event.cpu_children:
+        yield from _subtree(child)
+
+
+def profile_calls(calls: dict, ranges: dict) -> dict:
+    """Each of ``calls`` (label: fn) after a warm-up: its host time to
+    return (nothing waits for the card unless ``fn`` does) and its time
+    to a sync; then all of them once more in one ``torch.profiler``
+    session, each in a range of its label: its kernels' device time and
+    launch count. Each entry of ``ranges`` (label: (module, function
+    name)) wraps that function in a range of its own: by call, its host
+    time in the timed run (summed over its calls) and the device time
+    of the kernels launched inside it in the profiled run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    host = {}
+    current = [None]
+
+    def ranged(label, orig):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            with record_function(label):
+                res = orig(*args, **kw)
+            key = (current[0], label)
+            host[key] = host.get(key, 0.0) + time.perf_counter() - t
+            return res
+        return run
+    res = {}
+    with contextlib.ExitStack() as stack:
+        for label, (obj, name) in ranges.items():
+            stack.enter_context(patched(obj, name,
+                                        ranged(label, getattr(obj, name))))
+        for call, fn in calls.items():
+            current[0] = None
+            out = fn()
+            sync()
+            del out
+            current[0] = call
+            t0 = time.perf_counter()
+            out = fn()
+            t1 = time.perf_counter()
+            sync()
+            t2 = time.perf_counter()
+            del out
+            res[call] = {"host_ms": (t1 - t0) * 1e3,
+                         "wall_ms": (t2 - t0) * 1e3}
+            for label in ranges:
+                if (call, label) in host:
+                    res[call][label] = {"host_ms": host[call, label] * 1e3}
+        current[0] = None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for call, fn in calls.items():
+                with record_function(call):
+                    out = fn()
+                    sync()
+                del out
+    for event in prof.events():
+        if event.name not in calls or event.device_type != DeviceType.CPU:
+            continue
+        sub = list(_subtree(event))
+        row = res[event.name]
+        row["kernel_ms"] = event.device_time_total / 1e3
+        row["launches"] = sum(len(e.kernels) for e in sub)
+        for label in ranges:
+            inner = [e for e in sub if e.name == label]
+            if inner:
+                row[label].update(calls=len(inner), device_ms=sum(
+                    e.device_time_total for e in inner) / 1e3)
+    free()
+    return res
+
+
+def dist_profile(name: str, kind: str, dix, local, qpts, dev) -> dict:
+    """Where one distributed insert, delete (BATCH points each) and kNN
+    call (QUERIES queries, the engine without the batcher) spend their
+    time, beside the single-device index over the same points: host
+    time to return, time to a sync, kernels' device time and launches;
+    the routing exchange (codes, searchsorted, pack, all-to-all) apart
+    from the shard-local updates, and the frontier calls (prep and
+    walk) apart from the rest of the kNN (canonical order, point
+    gather, the merge)."""
+    mod = porth if kind == "porth" else spac
+    rng = np.random.default_rng(SEED + 29)
+    new = torch.as_tensor(gen.uniform(rng, BATCH), device=dev)
+    pts, ok = dix.extract_points()
+    live = pts[ok]
+    old = live[torch.as_tensor(rng.choice(live.shape[0], BATCH,
+                                          replace=False), device=dev)]
+    del pts, ok, live
+    q = torch.as_tensor(qpts, device=dev)
+    res = profile_calls(
+        {"insert.lanes": lambda: dix.insert_unchecked(new),
+         "insert.one_device": lambda: local.insert_unchecked(new),
+         "delete.lanes": lambda: dix.delete_unchecked(old),
+         "delete.one_device": lambda: local.delete(old),
+         "knn.lanes": lambda: dix.knn(q, K),
+         "knn.one_device": lambda: local.knn(q, K)},
+        {"route": (distributed, "_route_exchange"),
+         "shard_insert": (mod, "insert"), "shard_delete": (mod, "delete"),
+         "frontier": (frontier_ops, "knn_frontier_impl")})
+    out = {"phase": f"profile-{name}", "kind": kind,
+           "lanes": dix.mesh.size, "points": BATCH, "queries": QUERIES,
+           "k": K, **res}
+    emit(out)
+    return out
+
+
+def dist_phase(dev) -> dict:
+    """The mesh-sharded index on ``simulate_mesh(8)`` (8 lanes on this
+    card): per kind (spac-h, porth) the serving loop at 10^7 points (the
+    build, 1 warm-up and DIST_STEPS measured steps, inserts under sync
+    debug mode "error"), whose last step is held against brute force and
+    against a single-device index over the same points; a small mesh
+    (N_FLAT points) through the flat kernel; then the workload driver's
+    CLI with ``--mesh 8`` at the driver phase's size. Returns the
+    launches by path."""
+    t0 = time.perf_counter()
+    mesh = platform.simulate_mesh(DIST_LANES, device=dev)
+    launches = {}
+    for kind in DRIVER_KINDS:
+        name = f"dist-{kind}"
+        build_kw = driver.build_params(kind)
+        run = run_server(name, kind, N_MAIN, BATCH, DIST_STEPS + WARMUP,
+                         WARMUP, dev, mesh=mesh, **build_kw)
+        summary = run["summary"]
+        emit(summary)
+        ops = summary["launches_by_op"]
+        check(set(summary["routes"]) == {"frontier-kernel:cuda"},
+              f"{name}: auto took {summary['routes']}")
+        check(len(summary["shard_points"]) == DIST_LANES
+              and sum(summary["shard_points"]) == summary["final_size"],
+              f"{name}: shard sizes {summary['shard_points']}")
+        check(ops["query"]["knn_frontier"] > 0,
+              f"{name}: the frontier kernel never launched")
+        check(ops["delete"]["row_bbox"] > 0,
+              f"{name}: the row-bbox kernel never launched on a delete")
+        if kind == "porth":
+            check(ops["build"]["sieve"] > 0 and ops["insert"]["sieve"] > 0,
+                  f"{name}: the sieve kernel never launched on the build "
+                  "and the inserts")
+        launches[name] = summary["launches"]
+        brute_check(name, run, N_CHECK, dev)
+        local = one_device_index(kind, run, dev, **build_kw)
+        same_as_one_device(name, kind, run, local, dev)
+        dist_profile(name, kind, run["snap"].index, local, run["qpts"],
+                     dev)
+        del run, local
+        free()
+    flat = run_server("dist-flat", "spac-h", N_FLAT, 256, 2, 1, dev,
+                      mesh=mesh, coord_bits=20)
+    emit(flat["summary"])
+    check(set(flat["summary"]["routes"]) == {"flat:cuda"},
+          f"dist-flat: auto took {flat['summary']['routes']}")
+    check(flat["summary"]["launches"]["knn_flat"] > 0,
+          "dist-flat: the flat kernel never launched")
+    launches["dist-flat"] = flat["summary"]["launches"]
+    brute_check("dist-flat", flat, QUERIES, dev)
+    del flat
+    free()
+    in_process_s = time.perf_counter() - t0
+
+    size = ["--scenarios", DRIVER_SCENARIO, "--n", str(N_MAIN), "--batch",
+            str(BATCH), "--queries", str(QUERIES), "--k", str(K),
+            "--window", str(WINDOW), "--warmup", str(DRIVER_WARMUP),
+            "--steps", str(DRIVER_STEPS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        run_cli(["repro_torch.serving.driver", "--mesh", str(DIST_LANES),
+                 "--kinds", ",".join(DRIVER_KINDS), *size, "--json",
+                 f"{tmp}/dist.json"], timeout=900)
+        cli_s = time.perf_counter() - t1
+        payload = json.loads(pathlib.Path(f"{tmp}/dist.json").read_text())
+    for kind in DRIVER_KINDS:
+        res = payload["results"][kind][DRIVER_SCENARIO]
+        det = payload["details"][kind][DRIVER_SCENARIO]
+        dist = res["distributed"]
+        for op in ("knn", "range"):
+            check(det["units"][op] == QUERIES * DRIVER_STEPS,
+                  f"dist driver {kind}: {det['units'][op]} {op} requests")
+        check(dist["n_shards"] == DIST_LANES
+              and sum(dist["shard_points"]) == res["final_size"]
+              == det["expected_size"],
+              f"dist driver {kind}: shards {dist}, final size "
+              f"{res['final_size']}, expected {det['expected_size']}")
+        check(det["launches"]["knn_frontier"] > 0,
+              f"dist driver {kind}: the frontier kernel never launched")
+        launches[f"dist-driver-{kind}"] = det["launches"]
+        lat = res["latency_ms"]
+        emit({"phase": "dist", "kind": kind, "lanes": DIST_LANES,
+              "scenario": DRIVER_SCENARIO, "n": N_MAIN, "batch": BATCH,
+              "queries": QUERIES, "k": K, "window": WINDOW,
+              "warmup": DRIVER_WARMUP, "steps": DRIVER_STEPS,
+              "latency_ms": {op: {p: lat[op][p] for p in
+                                  ("p50_ms", "p99_ms", "count")}
+                             for op in DRIVER_OPS if op in lat},
+              "query_per_s": res["throughput"]["query_per_s"],
+              "update_pts_per_s": res["throughput"]["update_pts_per_s"],
+              "build_s": res["build_s"],
+              "steady_bytes": res["memory"]["steady_bytes"],
+              "peak_window_bytes": res["memory"]["peak_window_bytes"],
+              "peak_allocated_bytes": det["peak_allocated_bytes"],
+              "recoveries": res["recoveries"],
+              "recoveries_by_step": det["recoveries_by_step"],
+              "final_size": res["final_size"],
+              "expected_size": det["expected_size"],
+              "distributed": dist, "launches": det["launches"],
+              "cli_s": cli_s})
+    emit({"phase": "dist-seconds", "in_process": in_process_s,
+          "cli": cli_s, "total": time.perf_counter() - t0})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the paper's figures, the roofline and the regression gate
 # ---------------------------------------------------------------------------
 
 # fig3 over one distribution here (the three-distribution grid is a run
 # of its own); every section at N_MAIN points with one timed rep; the
-# tile sweep at the roofline's query count (the prep's per-block group
-# bounds are query blocks x groups: 4096 queries in blocks of 8 over
-# porth's 5M groups of 128 points would take 30 GB)
+# tile sweep at the roofline's default query count (the prep's per-block
+# group bounds are query blocks x groups: 4096 queries in blocks of 8
+# over porth's 5M groups of 128 points would take 30 GB)
 FIG_DISTS = "uniform"
 FIG_REPS = 1
-SWEEP_NQ = 256
+SWEEP_NQ = 64
 # brute-force checks take this many sampled queries a call
 BRUTE_CHUNK = 32
 # kinds whose deletes run the row-bbox kernel (kd and zd rebuild)
@@ -1546,9 +1838,11 @@ def figures_phase(dev) -> dict:
         free()
         gate = regress_gate(tmp)
     emit({"phase": "figures", "n": N_MAIN,
-          # the cuts against the full grid: reps, fig3's distributions
+          # the cuts against the full grid: reps, fig3's distributions,
+          # the tile sweep's queries
           "reduced": {"reps": FIG_REPS, "of_reps": 3,
-                      "fig3_dists": FIG_DISTS},
+                      "fig3_dists": FIG_DISTS, "sweep_queries": SWEEP_NQ,
+                      "of_sweep_queries": 256},
           "sections_s": details["sections_s"], "run_s": run_s,
           "checks": checks, "launches": launches,
           "peak_bytes": {fig: {key: det.get("peak_bytes")
@@ -2093,11 +2387,17 @@ def main() -> int:
     free()
     driver_launches = driver_phase(dev)
     free()
+    dist_launches = dist_phase(dev)
+    free()
     fig_launches = figures_phase(dev)
     for r in rows:
         for kind, launches in driver_launches.items():
             if r["name"] in launches:
                 r.setdefault("launches_by_path", {})[f"driver-{kind}"] = \
+                    launches[r["name"]]
+        for path, launches in dist_launches.items():
+            if r["name"] in launches:
+                r.setdefault("launches_by_path", {})[path] = \
                     launches[r["name"]]
         if r["name"] in fig_launches:
             r.setdefault("launches_by_path", {})["figures"] = \

@@ -39,6 +39,10 @@ kNN routes (``impl``):
 The kernel routes take their plain versions on CPU tensors. Results are
 canonical: each query's hits are sorted by ``(d2, id)``, so exact routes
 agree bit for bit on tie-free data.
+
+``knn_dist`` and ``range_count_dist`` are the same planning over a
+mesh-sharded index (:mod:`.distributed`): the route is planned from one
+shard's rows, and range buckets escalate until no shard truncates.
 """
 
 from __future__ import annotations
@@ -192,16 +196,21 @@ class QueryEngine:
             return "frontier-kernel", impl.split("-")[0]
         return "flat", impl
 
-    def knn(self, view: queries.LeafView, qpts, k: int,
-            impl: str = "auto"):
-        """Exact batched kNN -> (d2 (Q, k) ascending, flat ids (Q, k) =
-        row*C+slot, -1 padded), canonically (d2, id)-ordered."""
-        rows, cols, dim = view.pts.shape
+    def _route_knn(self, rows: int, cols: int, impl: str):
+        """Plan a kNN call's route and count it."""
         route, param = self.plan_knn(rows, cols, impl)
         name = f"{route}:{param}"
         self.route_counts[name] = self.route_counts.get(name, 0) + 1
         obs.count("engine.plan_request")
         obs.count(f"engine.route.{OBS_ROUTES[route]}")
+        return route, param
+
+    def knn(self, view: queries.LeafView, qpts, k: int,
+            impl: str = "auto"):
+        """Exact batched kNN -> (d2 (Q, k) ascending, flat ids (Q, k) =
+        row*C+slot, -1 padded), canonically (d2, id)-ordered."""
+        rows, cols, dim = view.pts.shape
+        route, param = self._route_knn(rows, cols, impl)
         sig = (qpts.shape[0], dim, str(qpts.dtype), int(k), route, param)
         _plan_signature("knn", *sig)
         plan = _knn_plan(*sig, tuple(view.pts.shape))
@@ -273,3 +282,39 @@ class QueryEngine:
                 cap = max(2 * cap, _pow2(max_cnt))
             cap = min(cap, max_rows * cols)
 
+
+    # -- distributed queries (the shard-merge step) ------------------------
+
+    def knn_dist(self, index, qpts, k: int, mesh, impl: str = "auto"):
+        """Exact distributed kNN -> (d2, neighbor points, valid): each
+        shard answers on its lane (route planned from one shard's rows),
+        then the merge takes the top-k of the per-shard top-k."""
+        from . import distributed as D
+        rows, cols = index.tree[0].pts.shape[:2]
+        route, param = self._route_knn(rows, cols, impl)
+        if route == "frontier":
+            return D.knn(index, qpts, k, mesh, chunk=param)
+        return D.knn(index, qpts, k, mesh, impl=route, kernel=param)
+
+    def range_count_dist(self, index, lo, hi, mesh):
+        """Exact distributed range count -> counts (Q,): per-shard counts
+        summed, re-run at escalated row buckets until no shard
+        truncates."""
+        from . import distributed as D
+        rows = index.tree[0].pts.shape[0]
+        key = ("range_count_dist", lo.shape[0], lo.shape[-1],
+               str(lo.dtype))
+        max_rows = min(_pow2(self._buckets.get(key, self.start_rows)),
+                       _pow2(rows))
+        obs.count("engine.plan_request")
+        rounds = 0
+        while True:
+            cnt, trunc = D.range_count(index, lo, hi, mesh,
+                                       max_rows=max_rows)
+            if max_rows >= rows or not bool(trunc.any()):
+                self._buckets[key] = max_rows
+                obs.observe("engine.escalation_rounds", rounds)
+                return cnt
+            rounds += 1
+            obs.count("engine.escalation")
+            max_rows = min(2 * max_rows, _pow2(rows))

@@ -28,8 +28,11 @@ Registered kinds: ``porth`` (the P-Orth tree), ``spac-h``, ``spac-z``,
 in place in fixed arrays with a sticky ``overflowed`` flag), and the
 rebuild baselines ``kd`` and ``zd`` (each update re-runs the build; the
 facade sizes rows from a host-side bound on live points and verifies the
-rebuilt size, so their updates synchronise). The reference's
-mesh-sharded ``DistributedIndex`` is not ported yet.
+rebuilt size, so their updates synchronise). ``make_index(...,
+mesh=)`` returns a :class:`DistributedIndex`, the same surface over an
+index key-range partitioned over a mesh's lanes
+(:mod:`repro_torch.core.distributed`), for the spac curve kinds and
+porth.
 
 Entry points run on the card: ``make_index(..., device=None)`` resolves
 to CUDA and raises on a host without it (see :mod:`repro_torch.device`).
@@ -504,9 +507,19 @@ def make_index(kind: str, points, mask=None, *, phi: int = 32,
     keywords.
     ``donate=True`` marks a handle whose caller drops old versions after
     each update; :class:`repro_torch.serving.SpatialServer` refuses it.
+    With ``mesh=`` (:mod:`repro_torch.configs.platform`) the index is
+    key-range partitioned over the mesh's lanes and a
+    :class:`DistributedIndex` is returned (the lanes' devices place it;
+    ``device`` is not used).
     """
     if mesh is not None:
-        raise NotImplementedError("mesh-sharded indexes are not ported yet")
+        if donate:
+            raise ValueError("donate=True is not supported for "
+                             "distributed indexes")
+        return DistributedIndex.build(kind, points, mesh, mask=mask,
+                                      phi=phi, capacity_rows=capacity_rows,
+                                      capacity_points=capacity_points,
+                                      **params)
     backend = get_backend(kind)
     dev = resolve_device(device)
     pts = torch.as_tensor(points, device=dev)
@@ -544,3 +557,283 @@ def make_index(kind: str, points, mask=None, *, phi: int = 32,
     return SpatialIndex(kind, tree, phi=phi, params=resolved, donate=donate,
                         size_hint=expected,
                         rebuild_rows=0 if backend.dynamic else cap)
+
+
+# ---------------------------------------------------------------------------
+# distributed adapter
+# ---------------------------------------------------------------------------
+
+class DistributedIndex:
+    """The same surface over an SFC-range-partitioned index on a mesh
+    (:mod:`repro_torch.core.distributed`). kNN returns neighbor
+    coordinates instead of flat slot ids (ids are shard-local);
+    ``range_list`` is not offered distributed."""
+
+    def __init__(self, kind: str, index, mesh, *, phi: int,
+                 slack: float = 2.0, build_kw: dict | None = None,
+                 engine: QueryEngine | None = None):
+        self.kind = kind
+        self._index = index
+        self.mesh = mesh
+        self.phi = phi
+        self.slack = slack
+        # everything needed to re-shard at a larger capacity (overflow
+        # recovery keeps the facade's never-lose-points contract)
+        self._build_kw = build_kw or {}
+        self._engine = engine if engine is not None else QueryEngine()
+
+    @classmethod
+    def build(cls, kind: str, points, mesh, *, mask=None, phi: int = 32,
+              capacity_rows: int | None = None,
+              capacity_points: int | None = None, slack: float = 2.0,
+              n_samples: int = 256, axis: str = "data", **params):
+        from . import distributed as D
+        backend = get_backend(kind)
+        pts = torch.as_tensor(points, device=mesh.devices[0])
+        if kind == "porth":
+            # the sieve routes by its own prefix keys (Morton codes from
+            # midpoint comparisons), so float domains shard exactly
+            allowed = ("root_lo", "root_hi", "lam", "rounds")
+            resolved = {k: params.pop(k, backend.defaults[k])
+                        for k in allowed}
+            if params:
+                raise TypeError(f"{kind} (distributed): unknown params "
+                                f"{sorted(params)}")
+            resolved = _porth_resolve(resolved, pts)
+            route_kw = dict(
+                kind="porth",
+                root_lo=tuple(resolved["root_lo"].tolist()),
+                root_hi=tuple(resolved["root_hi"].tolist()),
+                lam=int(resolved["lam"]), rounds=int(resolved["rounds"]))
+        elif "curve" in backend.defaults and \
+                not backend.defaults.get("sort_rows"):
+            bits = params.pop("bits", backend.defaults["bits"])
+            coord_bits = params.pop("coord_bits",
+                                    backend.defaults["coord_bits"])
+            if params:
+                raise TypeError(f"{kind} (distributed): unknown params "
+                                f"{sorted(params)}")
+            route_kw = dict(kind="spac", curve=backend.defaults["curve"],
+                            bits=bits, coord_bits=coord_bits)
+        else:
+            raise ValueError(
+                f"distributed indexes require a mesh-capable kind "
+                f"(spac-family or porth), got {kind!r}")
+        if capacity_rows is None and capacity_points is not None:
+            # per-shard rows for the lifetime maximum, with 2x headroom
+            # for routing imbalance
+            n_shards = mesh.shape[axis]
+            capacity_rows = capacity_for(
+                2 * capacity_points // max(n_shards, 1), phi,
+                backend.cap_slack)
+        build_kw = dict(axis=axis, phi=phi, capacity_rows=capacity_rows,
+                        slack=slack, n_samples=n_samples, **route_kw)
+        expected = pts.shape[0] if mask is None else int(
+            torch.as_tensor(mask, dtype=torch.bool).sum())
+        for _ in range(6):
+            idx = D.build(pts, mesh, mask, **build_kw)
+            # two silent-loss modes: shard-local builds drop past row
+            # capacity, and skewed routing overflows the all-to-all slab
+            # (reported in `dropped`): escalate whichever bit
+            size, dropped = int(D.size(idx)), int(idx.dropped)
+            if size == expected:
+                break
+            if dropped:
+                build_kw["slack"] = 2 * build_kw["slack"]
+            if size + dropped != expected:
+                build_kw["capacity_rows"] = 2 * idx.tree[0].pts.shape[0]
+        else:
+            raise RuntimeError(
+                f"{kind} (distributed): build of {expected} points still "
+                f"loses points at capacity_rows="
+                f"{build_kw['capacity_rows']}, slack={build_kw['slack']}")
+        return cls(kind, idx, mesh, phi=phi, slack=build_kw["slack"],
+                   build_kw=build_kw)
+
+    def _wrap(self, idx, slack: float | None = None) -> "DistributedIndex":
+        return DistributedIndex(
+            self.kind, idx, self.mesh, phi=self.phi,
+            slack=self.slack if slack is None else slack,
+            build_kw=self._build_kw, engine=self._engine)
+
+    def _lanes(self) -> int:
+        return self.mesh.shape[self._build_kw["axis"]]
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def index(self):
+        """The raw :class:`repro_torch.core.distributed.DistIndex`."""
+        return self._index
+
+    @property
+    def device(self) -> torch.device:
+        """Lane 0's device: where answers and counters land."""
+        return self.mesh.devices[0]
+
+    @property
+    def size(self):
+        """Live points over all shards (0-d tensor on lane 0)."""
+        from . import distributed as D
+        return D.size(self._index)
+
+    def __len__(self) -> int:
+        return int(self.size)
+
+    @property
+    def dropped(self):
+        """Points lost to routing-slab overflow (0 = exact; re-shard with
+        a larger ``slack`` if nonzero)."""
+        return self._index.dropped
+
+    @property
+    def tree(self) -> tuple:
+        """The per-lane backend trees (the serving runtime's handle for
+        memory accounting; ``overflowed`` is per shard here)."""
+        return self._index.tree
+
+    @property
+    def overflowed(self):
+        """The shards' sticky ``overflowed`` flags, shape (n_shards,), on
+        lane 0 (no device read)."""
+        return torch.stack([t.overflowed.to(self.device, non_blocking=True)
+                            for t in self._index.tree])
+
+    def shard_sizes(self):
+        """Per-shard live point counts, shape (n_shards,), on lane 0."""
+        from . import distributed as D
+        return D.shard_sizes(self._index)
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes across all shards (metadata only)."""
+        return (tree_bytes(self._index.tree)
+                + self._index.splitters.nbytes + self._index.dropped.nbytes)
+
+    def block_until_ready(self) -> "DistributedIndex":
+        """Wait for the work queued so far on every lane's device."""
+        for dev in dict.fromkeys(self.mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        return self
+
+    def extract_points(self):
+        """All (points, valid) pairs of every shard, flattened on lane 0."""
+        lane0 = self.device
+        pts, ok = [], []
+        for t in self._index.tree:
+            R, C, dim = t.pts.shape
+            pts.append(t.pts.reshape(R * C, dim).to(lane0))
+            ok.append((t.valid & t.active[:, None]).reshape(R * C).to(lane0))
+        return torch.cat(pts), torch.cat(ok)
+
+    # -- updates -----------------------------------------------------------
+
+    def _prep(self, pts, mask):
+        pts = torch.as_tensor(pts, device=self.device)
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
+        return pts, mask
+
+    def insert(self, pts, mask=None) -> "DistributedIndex":
+        """Batch insert. Two shard-level failures are recovered here, so
+        callers never lose points: a shard whose rows fill up keeps its
+        old contents and raises ``overflowed`` (all-or-nothing), and a
+        skewed batch can overflow the routing slab (``dropped`` grows).
+        Either way the pre-insert snapshot plus the batch is re-sharded
+        at doubled per-shard capacity / escalated slack."""
+        from . import distributed as D
+        pts, mask = self._prep(pts, mask)
+        base = int(self._index.dropped)
+        slack = self.slack
+        for _ in range(3):
+            out = self._wrap(D.insert(self._index, pts, self.mesh, mask,
+                                      slack=slack), slack)
+            if bool(out.overflowed.any()):
+                break               # shard rows full: re-shard below
+            if int(out.dropped) == base:
+                return out          # keep the slack that worked
+            # routing slab too tight: a fully-skewed batch (all entries
+            # to one shard) needs slack ~ n_shards, so jump there
+            slack = max(2 * slack, self._lanes())
+        old_pts, old_ok = self.extract_points()
+        batch_ok = (torch.ones(pts.shape[0], dtype=torch.bool,
+                               device=self.device) if mask is None else mask)
+        all_pts = torch.cat([old_pts, pts.to(old_pts.dtype)])
+        all_ok = torch.cat([old_ok, batch_ok])
+        kw = self._build_kw
+        # routing-key params pass through per kind; the classmethod
+        # retries at doubling capacity until the full multiset fits
+        extra = {k: kw[k] for k in ("bits", "coord_bits", "root_lo",
+                                    "root_hi", "lam", "rounds") if k in kw}
+        return DistributedIndex.build(
+            self.kind, all_pts, self.mesh, mask=all_ok, phi=self.phi,
+            capacity_rows=2 * self._index.tree[0].pts.shape[0],
+            slack=slack, n_samples=kw["n_samples"], axis=kw["axis"],
+            **extra)
+
+    def insert_unchecked(self, pts, mask=None) -> "DistributedIndex":
+        """Dispatch-only insert for the serving runtime: no host read of
+        ``dropped`` or of the per-shard ``overflowed`` flags, so the call
+        returns once the update is queued. Both signals are sticky; the
+        caller checks them at its next sync point
+        (:class:`repro_torch.serving.SpatialServer` at eviction and
+        ``commit()``) and replays from the last good version."""
+        from . import distributed as D
+        pts, mask = self._prep(pts, mask)
+        return self._wrap(D.insert(self._index, pts, self.mesh, mask,
+                                   slack=self.slack))
+
+    def delete_unchecked(self, pts, mask=None) -> "DistributedIndex":
+        """Dispatch-only delete: skips the host read of ``dropped`` (a
+        dropped delete entry leaves a point alive; caught at commit). The
+        shard-local deletes read one scalar each."""
+        from . import distributed as D
+        pts, mask = self._prep(pts, mask)
+        return self._wrap(D.delete(self._index, pts, self.mesh, mask,
+                                   slack=self.slack))
+
+    def delete(self, pts, mask=None) -> "DistributedIndex":
+        """Batch delete. A skewed batch can overflow the routing slab and
+        leave entries undeleted: retry from the (untouched) pre-delete
+        index with escalated slack until nothing is dropped."""
+        from . import distributed as D
+        pts, mask = self._prep(pts, mask)
+        base = int(self._index.dropped)
+        slack = self.slack
+        for _ in range(5):
+            out = D.delete(self._index, pts, self.mesh, mask, slack=slack)
+            if int(out.dropped) == base:
+                return self._wrap(out, slack)
+            # worst case (fully-skewed batch) needs slack ~ n_shards
+            slack = max(2 * slack, self._lanes())
+        raise RuntimeError(
+            f"{self.kind} (distributed): delete batch still overflows "
+            f"the routing slab at slack={slack}")
+
+    # -- queries -----------------------------------------------------------
+
+    @property
+    def engine(self) -> QueryEngine:
+        return self._engine
+
+    def knn(self, qpts, k: int, *, impl: str = "auto"):
+        """Exact distributed kNN -> (d2, neighbor points, valid): the
+        engine routes each shard's query and merges the top-k of the
+        per-shard top-k."""
+        return self._engine.knn_dist(
+            self._index, torch.as_tensor(qpts, device=self.device), k,
+            self.mesh, impl=impl)
+
+    knn_points = knn
+
+    def range_count(self, lo, hi):
+        """Exact distributed range count -> counts (Q,)."""
+        return self._engine.range_count_dist(
+            self._index, torch.as_tensor(lo, device=self.device),
+            torch.as_tensor(hi, device=self.device), self.mesh)
+
+    def __repr__(self):
+        return (f"DistributedIndex(kind={self.kind!r}, "
+                f"mesh={dict(self.mesh.shape)}, phi={self.phi}, "
+                f"device={self.device})")

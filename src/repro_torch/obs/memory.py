@@ -26,10 +26,13 @@ __all__ = ["tree_bytes", "fmt_bytes"]
 
 def tree_bytes(tree) -> int:
     """Resident bytes of a backend tree's tensors (a tree dataclass's
-    attributes): shape/dtype arithmetic, never a device read. Other
-    attributes (ints, static config) contribute 0."""
+    attributes; a tuple of trees, one per mesh lane, sums them):
+    shape/dtype arithmetic, never a device read. Other attributes (ints,
+    static config) contribute 0."""
     import torch  # deferred import: obs stays stdlib-importable
 
+    if isinstance(tree, (tuple, list)):
+        return sum(tree_bytes(t) for t in tree)
     return sum(v.nbytes for v in vars(tree).values()
                if isinstance(v, torch.Tensor))
 

@@ -25,9 +25,10 @@ comparison, rendering, snapshots and CLI:
 ``--inject-scale X`` degrades every time metric by ``X`` after
 collection (the self-test: replaying a snapshot with
 ``--inject-scale 2`` must fail the gate). ``--device`` picks where the
-suites run (default: the card; ``cpu`` only when asked). The
-reference's ``dist`` suite (distributed serving on a simulated mesh)
-raises: distributed serving is not ported (ROADMAP queue 1, item 3).
+suites run (default: the card; ``cpu`` only when asked). The ``dist``
+suite serves from a mesh of 8 lanes on that device, in-process: the
+port's mesh needs no environment staged before start-up, so the
+reference's subprocess has no counterpart.
 
 Run::
 
@@ -60,10 +61,6 @@ STRUCT_TOL = 0.25         # bytes/counts are deterministic: keep tight
 # trips a relative band (ms / q/s scale for time, 1 unit for struct)
 TIME_FLOOR = 2.0
 STRUCT_FLOOR = 1.0
-
-DIST_NOT_PORTED = ("the dist suite: distributed serving is not ported "
-                   "(ROADMAP queue 1, item 3)")
-
 
 def metric(value, better: str = "lower", kind: str = "time") -> dict:
     return {"value": float(value), "better": better, "kind": kind}
@@ -142,13 +139,37 @@ def _suite_fig10(verbose: bool, device=None) -> dict:
 
 
 def _suite_dist(verbose: bool, device=None) -> dict:
-    raise NotImplementedError(DIST_NOT_PORTED)
+    """Distributed serving smoke on a simulated 8-lane mesh: the serving
+    driver at --smoke scale. Gates structure only (routing balance and
+    exact final sizes): 8 lanes on one device time the simulation, not
+    the system."""
+    from ..configs import platform
+    from ..data import points as gen
+    from ..serving import driver
+    n_shards = 8
+    cfg = driver.DriverCfg(n=1500, batch=128, steps=2, warmup=1,
+                           queries=16, k=5, mesh=n_shards)
+    payload = driver.run(kinds=("spac-h",), scenarios=gen.SCENARIOS,
+                         cfg=cfg, verbose=verbose, device=device,
+                         mesh=platform.simulate_mesh(n_shards,
+                                                     device=device))
+    out: dict = {}
+    for scen, r in payload["results"]["spac-h"].items():
+        d = r["distributed"]
+        # deterministic functions of the seeded workload: final live
+        # count and the per-shard balance of the key-range routing
+        out[f"dist.{scen}.final_size"] = \
+            metric(r["final_size"], "higher", "struct")
+        out[f"dist.{scen}.shard_min_points"] = \
+            metric(d["shard_min_points"], "higher", "struct")
+        out[f"dist.{scen}.shard_max_points"] = \
+            metric(d["shard_max_points"], "lower", "struct")
+    return out
 
 
 SUITES = {"serve": _suite_serve, "fig4": _suite_fig4,
           "fig5": _suite_fig5, "fig10": _suite_fig10,
           "dist": _suite_dist}
-NOT_PORTED = ("dist",)
 
 
 def collect(suite_names, verbose: bool = True, device=None) -> dict:
@@ -293,10 +314,8 @@ def inject(current: dict, scale: float) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--suites", default=",".join(
-                        s for s in SUITES if s not in NOT_PORTED),
-                    help=f"comma-separated from {sorted(SUITES)} "
-                    "(dist is not ported and raises)")
+    ap.add_argument("--suites", default=",".join(SUITES),
+                    help=f"comma-separated from {sorted(SUITES)}")
     ap.add_argument("--baseline", default=DEFAULT_BASELINE,
                     metavar="PATH")
     ap.add_argument("--update", action="store_true",
@@ -332,8 +351,6 @@ def main(argv=None) -> int:
         print(f"repro_torch.obs.regress: unknown suites {sorted(unknown)}",
               file=sys.stderr)
         return 2
-    for name in set(suite_names) & set(NOT_PORTED):
-        SUITES[name](verbose, None)       # raises, naming its queue item
 
     if args.replay:
         try:

@@ -42,8 +42,13 @@ trace's 20-bit coordinate width (:func:`build_params`) and, in
 :func:`run`'s payload, a ``details`` entry per (kind, scenario) with the
 request units answered in the measured window, the trace's expected
 final size, kernel launches (:data:`KERNELS`) and, when a recorder is
-installed, the run's obs counter deltas. ``--mesh`` is not ported
-(ROADMAP queue 1, item 3).
+installed, the run's obs counter deltas, the commits' cumulative
+recoveries by step and, on the card, the peak allocated bytes.
+
+``--mesh N`` serves from a :class:`repro_torch.core.index.DistributedIndex`
+over N lanes on ``--device`` (:func:`repro_torch.configs.platform.simulate_mesh`)
+and adds the reference's ``distributed`` section (live points by shard,
+the routing-drop counter) and ``server.shard<i>.live_points`` gauges.
 
 Scenarios are ``repro_torch.data.points.SCENARIOS``: churn over each
 point distribution (uniform / sweepline / varden) plus the dynamic
@@ -54,6 +59,8 @@ are seeded numpy: the same seed gives other points than the reference's
 Run:
   PYTHONPATH=src python -m repro_torch.serving.driver --kinds porth,spac-h
   PYTHONPATH=src python -m repro_torch.serving.driver --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.serving.driver --smoke --mesh 8 \
+      --device cpu
   PYTHONPATH=src python -m repro_torch.serving.driver --json  # results/port/
 """
 
@@ -69,6 +76,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..configs import platform
 from ..core.index import get_backend
 from ..data import points as gen
 from ..device import resolve_device
@@ -95,10 +103,6 @@ KERNELS = {"knn_flat": knn_kernel, "knn_frontier": frontier_kernel,
 #: and zd quantize that many bits per coordinate (see :func:`build_params`)
 COORD_BITS = (gen.DEFAULT_HI - 1).bit_length()
 
-MESH_NOT_PORTED = ("--mesh / mesh=: distributed serving is not ported "
-                   "(ROADMAP queue 1, item 3)")
-
-
 @dataclasses.dataclass(frozen=True)
 class DriverCfg:
     n: int = 20_000           # bootstrap / live-set size
@@ -116,7 +120,7 @@ class DriverCfg:
     seed: int = 0
     dim: int = 2
     phi: int = 32
-    mesh: int = 0             # shard count (0 = single device; only 0)
+    mesh: int = 0             # shard count (0 = single device)
 
 
 def _query_stream(cfg: DriverCfg, scenario: str, step: int):
@@ -164,11 +168,12 @@ def run_one(kind: str, scenario: str, cfg: DriverCfg,
             details: dict | None = None) -> dict:
     """Replay one (backend, scenario) trace on ``device`` (default: the
     card); returns latency summary + sustained throughput for the
-    measured window, in the reference's schema. A ``details`` dict is
-    filled with the port-only numbers (see the module docstring)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
-    dev = resolve_device(device)
+    measured window, in the reference's schema. With ``mesh`` the
+    server's head is a :class:`DistributedIndex` over the mesh's lanes
+    (the trace goes to lane 0's device) and the summary gains a
+    per-shard ``distributed`` section. A ``details`` dict is filled with
+    the port-only numbers (see the module docstring)."""
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     total = cfg.warmup + cfg.steps
     trace = gen.make_trace(scenario, seed=cfg.seed, n=cfg.n,
                            batch=cfg.batch, steps=total, dim=cfg.dim)
@@ -177,11 +182,13 @@ def run_one(kind: str, scenario: str, cfg: DriverCfg,
              for s in trace.steps]
     for mod in KERNELS.values():
         mod.reset_launch_count()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     counters0 = dict(obs.recorder().counters) if obs.enabled() else None
     t0 = time.perf_counter()
     srv = SpatialServer.build(kind, boot, phi=cfg.phi,
                               capacity_points=trace.max_live,
-                              window=cfg.window, device=dev,
+                              window=cfg.window, device=dev, mesh=mesh,
                               **build_params(kind))
     srv.head_index.block_until_ready()
     build_s = time.perf_counter() - t0
@@ -191,6 +198,7 @@ def run_one(kind: str, scenario: str, cfg: DriverCfg,
     # the library's own counters/spans, and trace export use one sink
     rec = LatencyRecorder(recorder=obs.recorder())
     measured_updates = 0
+    recoveries = []
     for s, (dels, ins) in enumerate(steps):
         if s == cfg.warmup:
             rec.reset()   # drop warm-up: kernel builds + escalations
@@ -226,6 +234,7 @@ def run_one(kind: str, scenario: str, cfg: DriverCfg,
         del answers
         with rec.timer("commit"):                   # exposed stall
             srv.commit()
+        recoveries.append(srv.stats["recoveries"])
         if s >= cfg.warmup:
             measured_updates += _rows(dels) + _rows(ins)
     wall = rec.wall_s
@@ -250,12 +259,30 @@ def run_one(kind: str, scenario: str, cfg: DriverCfg,
         "final_size": len(srv.head_index),
         "recoveries": srv.stats["recoveries"],
     }
+    if mesh is not None:
+        # per-shard balance: live points per shard from the key-range
+        # routing, plus the cumulative routing-drop counter (0 after the
+        # checked replay of any drop)
+        sizes = srv.head_index.shard_sizes().tolist()
+        for i, n_live in enumerate(sizes):
+            obs.gauge(f"server.shard{i}.live_points", int(n_live))
+        out["distributed"] = {
+            "n_shards": len(sizes),
+            "shard_points": [int(n_live) for n_live in sizes],
+            "shard_min_points": int(min(sizes)),
+            "shard_max_points": int(max(sizes)),
+            "dropped": int(srv.head_index.dropped),
+        }
     for key in ("query_per_s", "update_pts_per_s"):
         out["throughput"][key] = out["throughput"][key] / max(wall, 1e-9)
     if details is not None:
         details["units"] = {op: rec.count(op) for op in
                             ("insert", "delete", "knn", "range")}
         details["expected_size"] = trace.final_size
+        details["recoveries_by_step"] = recoveries
+        details["peak_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
         details["launches"] = {name: mod.launch_count()
                                for name, mod in KERNELS.items()}
         if counters0 is not None:
@@ -276,6 +303,12 @@ def run_one(kind: str, scenario: str, cfg: DriverCfg,
               f"mem {obs.fmt_bytes(mem['live_bytes'])} steady / "
               f"{obs.fmt_bytes(mem['peak_window_bytes'])} peak",
               flush=True)
+        if mesh is not None:
+            d = out["distributed"]
+            print(f"    shards={d['n_shards']} "
+                  f"points/shard min={d['shard_min_points']} "
+                  f"max={d['shard_max_points']} "
+                  f"dropped={d['dropped']}", flush=True)
     return out
 
 
@@ -439,8 +472,8 @@ def main(argv=None):
                     default=DriverCfg.max_delay_ms)
     ap.add_argument("--seed", type=int, default=DriverCfg.seed)
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="not ported: N > 0 raises (ROADMAP queue 1, "
-                    "item 3)")
+                    help="serve from a DistributedIndex sharded over N "
+                    "lanes on --device (adds per-shard metrics)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; a host "
                     "without CUDA needs --device cpu)")
@@ -462,9 +495,9 @@ def main(argv=None):
                     "into batcher-wait/dispatch/device segments "
                     f"(default {DEFAULT_SERVE_TRACE})")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(MESH_NOT_PORTED)
     device = resolve_device(args.device)
+    mesh = (platform.simulate_mesh(args.mesh, device=device) if args.mesh
+            else None)
     rec_obs = obs.install(obs.Recorder()) if args.obs_trace else None
 
     def _export_obs():
@@ -477,12 +510,17 @@ def main(argv=None):
 
     if args.smoke:
         cfg = DriverCfg(n=1500, batch=128, steps=2, warmup=1, queries=16,
-                        k=5, seed=args.seed)
+                        k=5, seed=args.seed, mesh=args.mesh)
         payload = run(kinds=("spac-h",), scenarios=gen.SCENARIOS, cfg=cfg,
-                      device=device)
+                      mesh=mesh, device=device)
         ops = {op for r in payload["results"]["spac-h"].values()
                for op, s in r["latency_ms"].items() if s["count"]}
         assert {"insert", "delete", "knn", "range", "commit"} <= ops, ops
+        if mesh is not None:
+            for r in payload["results"]["spac-h"].values():
+                d = r["distributed"]
+                assert d["n_shards"] == args.mesh, d
+                assert sum(d["shard_points"]) == r["final_size"], d
         _export_obs()
         if args.json:
             _write_json(args.json, payload)
@@ -492,10 +530,12 @@ def main(argv=None):
     cfg = DriverCfg(n=args.n, batch=args.batch, steps=args.steps,
                     warmup=args.warmup, queries=args.queries, k=args.k,
                     window=args.window, max_delay_ms=args.max_delay_ms,
-                    seed=args.seed)
+                    seed=args.seed, mesh=args.mesh)
     if args.attributed:
         assert rec_obs is None, \
             "--attributed manages its own recorder; drop --obs-trace"
+        assert mesh is None, \
+            "--attributed compares obs on/off single-device; drop --mesh"
         scenario = args.scenarios.split(",")[0]
         payload = run_attributed(kinds=tuple(args.kinds.split(",")),
                                  scenario=scenario, cfg=cfg, device=device)
@@ -503,7 +543,7 @@ def main(argv=None):
         print(f"wrote attributed serve baseline -> {args.attributed}")
         return
     payload = run(kinds=args.kinds.split(","),
-                  scenarios=args.scenarios.split(","), cfg=cfg,
+                  scenarios=args.scenarios.split(","), cfg=cfg, mesh=mesh,
                   device=device)
     _export_obs()
     if args.json:

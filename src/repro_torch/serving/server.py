@@ -27,6 +27,17 @@ updates are queued behind them on the card.
 Snapshot isolation needs old versions live, so the server refuses an
 index built with ``donate=True``.
 
+The same lineage fronts a mesh-sharded head
+(:class:`repro_torch.core.index.DistributedIndex`, ``build(...,
+mesh=)``): updates route through the all-to-all and queries through the
+engine's merge, both functional, so snapshots, the window and commit
+work unchanged. Distribution adds a second sticky failure signal beside
+the per-shard ``overflowed`` flags: the routing slab's ``dropped``
+counter, compared with its committed baseline. Both are copied behind
+the version's one event and read at the same sync points, and either
+replays the op log through the facade's checked re-shard / slack
+escalation.
+
 Observability (:mod:`repro_torch.obs`, the reference's names): spans
 ``serving.insert`` / ``serving.delete`` (dispatch), ``serving.evict_block``
 (the window's wait), ``serving.commit`` (the exposed stall; it ends with
@@ -44,38 +55,57 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..core.index import SpatialIndex, make_index
+from ..core.index import DistributedIndex, SpatialIndex, make_index
 from ..obs.memory import tree_bytes
 
 
-def _mark(index: SpatialIndex):
+def _flags(index):
+    """A version's sticky ``overflowed`` flags as one device tensor: the
+    scalar of a local tree, the per-shard vector of a distributed head;
+    None for a tree without the flag (the rebuild baselines kd and zd,
+    whose updates are checked synchronously by the facade)."""
+    if isinstance(index, DistributedIndex):
+        return index.overflowed
+    return getattr(index.tree, "overflowed", None)
+
+
+def _mark(index):
     """What a later sync point needs about ``index``'s version: on the
-    card, a copy of its sticky ``overflowed`` flag queued into pinned
-    host memory and a CUDA event recorded after it, so waiting on the
-    event and reading the copy waits for this version only (a plain
-    host read of the flag would wait for everything queued after it).
-    None on the CPU, where every op has finished when it returns, and
-    for a tree without the flag (the rebuild baselines kd and zd, whose
-    updates are checked synchronously by the facade)."""
-    flag_dev = getattr(index.tree, "overflowed", None)
-    if flag_dev is None or index.device.type != "cuda":
+    card, copies of its sticky failure signals (the ``overflowed`` flags
+    and, on a distributed head, the routing-slab ``dropped`` counter)
+    queued into pinned host memory and one CUDA event recorded after
+    them, so waiting on the event and reading the copies waits for this
+    version only (a plain host read would wait for everything queued
+    after it). None on the CPU, where every op has finished when it
+    returns, and for a tree without the flag."""
+    flags_dev = _flags(index)
+    if flags_dev is None or index.device.type != "cuda":
         return None
-    flag = torch.empty((), dtype=torch.bool, pin_memory=True)
-    flag.copy_(flag_dev, non_blocking=True)
+    flags = torch.empty(flags_dev.shape, dtype=torch.bool, pin_memory=True)
+    flags.copy_(flags_dev, non_blocking=True)
+    dropped = None
+    if isinstance(index, DistributedIndex):
+        dropped = torch.empty((), dtype=index.dropped.dtype,
+                              pin_memory=True)
+        dropped.copy_(index.dropped, non_blocking=True)
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(index.device))
-    return event, flag
+    return event, flags, dropped
 
 
-def _overflowed(index: SpatialIndex, mark) -> bool:
-    """Wait for the version behind ``mark`` and read its sticky flag (a
-    tree without the flag never overflows)."""
+def _dirty(index, mark, base_dropped: int) -> bool:
+    """Wait for the version behind ``mark`` and read its sticky signals:
+    dirty if any ``overflowed`` flag is set or, on a distributed head,
+    ``dropped`` moved from its committed baseline."""
     if mark is None:
-        flag = getattr(index.tree, "overflowed", None)
-        return flag is not None and bool(flag)
-    event, flag = mark
-    event.synchronize()
-    return bool(flag)
+        flags = _flags(index)
+        dropped = (index.dropped if isinstance(index, DistributedIndex)
+                   else None)
+    else:
+        event, flags, dropped = mark
+        event.synchronize()
+    return bool(flags is not None and flags.any()) or (
+        dropped is not None and int(dropped) != base_dropped)
 
 
 class Snapshot:
@@ -137,6 +167,11 @@ class SpatialServer:
         # read clean, plus every op dispatched since
         self._base = 0
         self._base_index = index
+        # a distributed head's second sticky signal: the routing-slab
+        # `dropped` counter, compared with its committed baseline at the
+        # sync points (construction is one, so this read is free)
+        self._base_dropped = (int(index.dropped)
+                              if isinstance(index, DistributedIndex) else 0)
         self._log: list[tuple[str, object, object]] = []
         self.stats = {"inserts": 0, "deletes": 0, "commits": 0,
                       "recoveries": 0, "update_points": 0}
@@ -146,15 +181,16 @@ class SpatialServer:
 
     @classmethod
     def build(cls, kind: str, points, *, window: int = 4, device=None,
-              **make_kw):
+              mesh=None, **make_kw):
         """Build a fresh index with :func:`make_index` on ``device``
-        (default: the card) and wrap it; pass ``capacity_points=`` for
-        the lifetime maximum so the deferred overflow check never
+        (default: the card), or over ``mesh``'s lanes as a
+        :class:`DistributedIndex`, and wrap it; pass ``capacity_points=``
+        for the lifetime maximum so the deferred overflow check never
         trips."""
         if make_kw.get("donate"):
             raise ValueError("SpatialServer does not support donate=True")
-        return cls(make_index(kind, points, device=device, **make_kw),
-                   window=window)
+        return cls(make_index(kind, points, device=device, mesh=mesh,
+                              **make_kw), window=window)
 
     # -- introspection -----------------------------------------------------
 
@@ -245,7 +281,8 @@ class SpatialServer:
             # before more updates pile on; past the wait its sticky
             # overflow read is free and doubles as an early check
             with obs.span("serving.evict_block", version=v):
-                dirty = _overflowed(old, self._marks.pop(v, None))
+                dirty = _dirty(old, self._marks.pop(v, None),
+                               self._base_dropped)
             if dirty:
                 self._recover()
             elif v > self._base:
@@ -266,13 +303,16 @@ class SpatialServer:
         with obs.span("serving.commit") as sp:
             sp.set(version=self._head, in_flight=self._head - self._base)
             head = self._versions[self._head]
-            if _overflowed(head, self._marks.get(self._head)):
+            if _dirty(head, self._marks.get(self._head),
+                      self._base_dropped):
                 head = self._recover()
             if self._deferred_points:
                 self.stats["update_points"] += sum(
                     int(x) for x in self._deferred_points)
                 self._deferred_points = []
             self._base, self._base_index = self._head, head
+            if isinstance(head, DistributedIndex):
+                self._base_dropped = int(head.dropped)
             self._log = []
             self._versions = OrderedDict({self._head: head})
             self._marks = {self._head: None}
@@ -295,6 +335,10 @@ class SpatialServer:
         self._versions = OrderedDict({self._head: idx})
         self._marks = {self._head: None}
         self._base, self._base_index = self._head, idx
+        if isinstance(idx, DistributedIndex):
+            # the replayed head is the new baseline of the routing-slab
+            # counter (a re-shard during the replay resets it)
+            self._base_dropped = int(idx.dropped)
         self._log = []
         self._rebase_memory(idx)
         self.stats["recoveries"] += 1

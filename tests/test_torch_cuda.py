@@ -825,3 +825,61 @@ def test_smoke_lm_on_card_equals_cpu(cuda, arch):
     out_cpu = ServeEngine(cfg, cpu, 48).generate(torch.as_tensor(
         toks[:, :P]), n)
     assert torch.equal(out_gpu.cpu(), out_cpu)
+
+
+@pytest.mark.parametrize("kind", ["spac-h", "spac-z", "porth"])
+def test_distributed_index_on_card_equals_cpu(cuda, kind):
+    """8 lanes of the card (``simulate_mesh``) against 8 lanes of the
+    CPU: the same splitters, shard trees, sizes and answers, through the
+    kernels (the flat kernel on these small shards, the frontier kernel
+    when asked)."""
+    from repro_torch.configs import platform
+    rng = np.random.default_rng(22)
+    pts = rng.integers(0, 1 << 20, (6000, 2)).astype(np.int32)
+    newp = rng.integers(0, 1 << 20, (700, 2)).astype(np.int32)
+    qs = rng.integers(0, 1 << 20, (64, 2)).astype(np.int32)
+    lo = rng.integers(0, 1 << 19, (32, 2)).astype(np.int32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = platform.simulate_mesh(8, device=dev)
+        idx = make_index(kind, pts, mesh=mesh, phi=8, coord_bits=20) \
+            if kind != "porth" else make_index(kind, pts, mesh=mesh, phi=8)
+        idx = idx.insert(newp).delete(pts[:500])
+        before = kk.launch_count() + fk.launch_count()
+        answers = [*idx.knn(qs, 10), *idx.knn(qs, 10,
+                                              impl="cuda-frontier"),
+                   idx.range_count(lo, lo + (1 << 18))]
+        if dev.type == "cuda":
+            assert kk.launch_count() + fk.launch_count() >= before + 16
+        out[dev.type] = (idx, [a.cpu() for a in answers])
+    (gpu, got), (cpu, want) = out["cuda"], out["cpu"]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(gpu.index.splitters.cpu(), cpu.index.splitters)
+    for tg, tc in zip(gpu.tree, cpu.tree):
+        a, b = tg.to_numpy(), tc.to_numpy()
+        for f in a:
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+@pytest.mark.parametrize("kind", ["spac-h", "porth"])
+def test_distributed_server_insert_is_sync_free(cuda, kind):
+    from repro_torch.configs import platform
+    rng = np.random.default_rng(7)
+    pts = torch.as_tensor(rng.integers(0, 1 << 20, (20000, 2)),
+                          dtype=torch.int32, device=cuda)
+    batch = torch.as_tensor(rng.integers(0, 1 << 20, (2000, 2)),
+                            dtype=torch.int32, device=cuda)
+    srv = SpatialServer.build(kind, pts, mesh=platform.simulate_mesh(
+        8, device=cuda), phi=32, window=4)
+    srv.insert(batch)
+    srv.commit()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            srv.insert(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    srv.commit()
+    assert len(srv.head_index) == 20000 + 4 * 2000
+    assert srv.stats["recoveries"] == 0

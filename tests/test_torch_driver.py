@@ -3,7 +3,8 @@ reference's: the same numpy arrays through both packages'
 ``SpatialServer`` + ``MicroBatcher`` give equal obs counters and span
 counts, ``run_one`` gives the reference's result schema and sizes, the
 CLI smoke exports a trace the viewer reads, and the entry points refuse
-what is not ported (``--mesh``) or not there (a card)."""
+``--attributed`` with ``--mesh`` (as the reference's) and a missing
+card."""
 
 from __future__ import annotations
 
@@ -202,11 +203,18 @@ def test_cli_smoke_and_viewer(tmp_path):
 
 
 def test_mesh_and_missing_card_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        driver.main(["--mesh", "2", "--device", "cpu"])
+    """``--attributed`` compares obs off and on on one device, so it
+    refuses ``--mesh`` (as the reference's does); without a card the
+    entry points raise (``--mesh`` runs: see
+    ``tests/test_torch_serving_distributed.py``)."""
+    with pytest.raises(AssertionError, match="drop --mesh"):
+        driver.main(["--mesh", "2", "--device", "cpu", "--attributed",
+                     "/nonexistent/serve_trace.json"])
     cfg = driver.DriverCfg(n=64, batch=8, steps=1, warmup=0, queries=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         driver.run_one("spac-h", "uniform", cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         driver.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        driver.main(["--smoke", "--mesh", "2"])

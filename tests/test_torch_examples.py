@@ -19,6 +19,8 @@ CASES = {
     "dynamic_index_serving": ["examples/port/dynamic_index_serving.py",
                               "--device", "cpu", "--n", "4000", "--epochs",
                               "3", "--warmup", "1", "--queries", "32"],
+    "distributed_index": ["examples/port/distributed_index.py", "--device",
+                          "cpu", "--n", "8192"],
 }
 
 

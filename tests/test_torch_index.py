@@ -12,6 +12,7 @@ import torch
 
 from repro.core import index as jindex
 from repro_torch import obs
+from repro_torch.configs.platform import simulate_mesh
 from repro_torch.core import (BACKENDS, baselines, get_backend, index,
                               make_index, porth, spac)
 
@@ -44,8 +45,12 @@ def test_registry_and_errors():
         make_index("octree", PTS, device="cpu")
     with pytest.raises(TypeError, match="unknown params"):
         make_index("spac-h", PTS, device="cpu", lam=3)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_index("spac-h", PTS, device="cpu", mesh=object())
+    # mesh= gives the distributed facade (the mesh-capable kinds only)
+    mesh = simulate_mesh(2, device="cpu")
+    assert isinstance(make_index("spac-h", PTS, phi=PHI, mesh=mesh),
+                      index.DistributedIndex)
+    with pytest.raises(ValueError, match="mesh-capable"):
+        make_index("kd", PTS, mesh=mesh)
 
 
 @pytest.mark.parametrize("kind,dynamic", [("kd", False), ("zd", False),

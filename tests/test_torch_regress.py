@@ -2,7 +2,7 @@
 metrics, bands, comparison, rendering, injection and snapshot naming on
 the same inputs; the CLI round trip (--update -> gate -> --replay) on a
 fake suite; the port's payload validation under ``results/port/``; and
-the reference's ``dist`` suite refused with its queue item."""
+the ``dist`` suite's metric names."""
 
 from __future__ import annotations
 
@@ -123,12 +123,18 @@ def test_cli_errors(fake_suite, tmp_path):
                          "--no-snapshot"]) == 2
 
 
-def test_dist_suite_is_refused_with_its_queue_item():
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        regress.main(["--suites", "dist", "--no-snapshot"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        regress.SUITES["dist"](False)
-    assert regress.NOT_PORTED == ("dist",)
+def test_dist_suite_is_refused_with_its_queue_item(tmp_path):
+    """The name is kept from when the suite was refused: the ``dist``
+    suite is one of the defaults now and gates the reference's metric
+    names (its values: ``tests/test_torch_serving_distributed.py``)."""
+    assert list(regress.SUITES) == list(jregress.SUITES)
+    base = tmp_path / "base.json"
+    assert regress.main(["--suites", "dist", "--update", "--quiet",
+                         "--baseline", str(base), "--device", "cpu"]) == 0
+    names = set(json.loads(base.read_text())["metrics"])
+    assert names == {f"dist.{scen}.{m}" for scen in (
+        "uniform", "sweepline", "varden", "moving-objects", "sliding-window")
+        for m in ("final_size", "shard_min_points", "shard_max_points")}
 
 
 def _valid_payloads() -> dict:
