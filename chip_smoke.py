@@ -10,8 +10,9 @@ Phases, each printed as one JSON line (``"phase": ...``):
 2. build  -- compiles every CUDA kernel from ``src/repro_torch/csrc`` with
              nvcc, one process per source, all started together; prints
              ptxas's registers and spill bytes for each flash-attention
-             kernel and the ``HMMA`` (tensor-core) instructions of each in
-             ``cuobjdump -sass``: every tc instantiation must hold some.
+             kernel, forward and backward, and the ``HMMA`` (tensor-core)
+             instructions of each in ``cuobjdump -sass``: every tc
+             instantiation must hold some.
 3. lm     -- the LM serving path at full width and depth: qwen1.5-0.5b
              (24 layers, d_model 1024, 16 heads of 64, vocab 151,936),
              bf16 weights from a seeded generator, through
@@ -28,6 +29,30 @@ Phases, each printed as one JSON line (``"phase": ...``):
              positions (``examples/serve_lm.py``'s bar) and take only
              the simt (prefill) and decode variants; one prefill and one
              decode step under ``torch.profiler``.
+3b. train -- the LM training path at full width and depth: qwen1.5-0.5b
+             in its own bf16 (remat "dots"), seeded weights, ``lm_batch``
+             at 4 x 2048 tokens, 1 warm-up and 8 measured steps of
+             ``make_train_step``. Every loss must be finite; every step
+             must launch the flash-attention kernel's tc variant twice a
+             layer (the forward and remat's recompute) and each of the
+             three backward kernels (``csrc/flash_attn_bwd.cu``: delta,
+             dkdv, dq) once a layer; no index kernel. Step ms p50/p99,
+             tokens/s, peak allocated bytes, launches by kernel and
+             variant, one step's device profile. Then 2 layers of the
+             full width at f32 (batch 2 x 512): gradients through the
+             kernels against ``attention_plain`` under autograd (each
+             leaf within 1e-4 of its largest); then the reference's
+             launcher (``repro_torch.launch.train --arch qwen1.5-0.5b
+             --steps 20 --batch 4 --seq 2048 --ckpt-dir <tmp>``, f32 as
+             the launcher forces it) in-process, whose own loss-decrease
+             check must hold, and its ``--resume``, whose losses must
+             equal the first run's after the checkpoint bit for bit.
+             The backward kernels' row: against their plain version on
+             one layer's inputs of a measured step (bf16, and f32 copies)
+             and at a GQA and window shape, within ``BWD_TOL``; the
+             forward's o and lse against ``attention_lse_plain`` (within
+             ``ATTN_TOL`` and ``LSE_TOL``) and the kernel chain's
+             gradients against the plain chain's (within ``CHAIN_TOL``).
 4. main   -- the serving loop at a deployment's size: ``SpatialServer``
              over a SPaC-tree (``spac-h``, phi=32, version window 4) of
              10^7 uniform 2D int32 points in [0, 2^20), then 1 warm-up
@@ -202,8 +227,11 @@ from repro_torch.core.index import DistributedIndex  # noqa: E402
 from repro_torch.data import points as gen  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bbox import kernel as bk  # noqa: E402
+from repro_torch.data.tokens import lm_batch  # noqa: E402
+from repro_torch.kernels.flash_attn import backward as fab  # noqa: E402
 from repro_torch.kernels.flash_attn import kernel as fak  # noqa: E402
-from repro_torch.kernels.flash_attn.ref import attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
+    attention_bwd_plain, attention_lse_plain, attention_plain)
 from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
 from repro_torch.kernels.frontier import ops as frontier_ops  # noqa: E402
 from repro_torch.kernels.frontier import prep, tuning  # noqa: E402
@@ -213,7 +241,9 @@ from repro_torch.kernels.morton import kernel as mk  # noqa: E402
 from repro_torch.kernels.sieve import kernel as sk  # noqa: E402
 from repro_torch.kernels.sieve import ops as sieve_ops  # noqa: E402
 from repro_torch.kernels.sieve import ref as sieve_ref  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.train import step as train_lib  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serving import (LatencyRecorder, MicroBatcher,  # noqa: E402
                                  SpatialServer, driver)
@@ -269,6 +299,40 @@ ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
             torch.bfloat16: dict(atol=1e-4, rtol=1e-2)}
 
 
+# the training path: qwen1.5-0.5b at full width and depth in bf16 (remat
+# "dots"), 4 x 2048 tokens a step, 1 warm-up and 8 measured steps
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 1, 8
+# the model-level gradient check: 2 layers of the full width, f32
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 512
+# each gradient leaf within this share of its largest magnitude (f32 sums
+# in another order through 2 layers of products)
+TRAIN_CHECK_REL = 1e-4
+# the reference's launcher at the full config (it forces f32)
+TRAIN_CLI_STEPS = 20
+# the backward kernel's other features (B, Hq, Hkv, S, d, window): GQA
+# and a window, at yi-9b's head width
+BWD_EXTRA = {"gqa_window": (2, 32, 4, 1024, 128, 256)}
+# backward kernel against plain version, each of dq, dk, dv: |got - want|
+# <= rtol |want| + atol_rel (the largest |want| of the three). Both
+# compute in f32 from the same inputs and round once to the inputs' type,
+# so bf16 gradients differ by at most one bf16 ulp (2^-7 of the value,
+# under 1e-2); atol_rel covers f32 sums taken in another order
+BWD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
+# the training form's forward row log-sum-exp against attention_lse_plain's:
+# |got - want| <= atol + rtol |want|. Both sum the same f32 scores in
+# another order, so they differ by a few f32 ulps of the row's scores
+LSE_TOL = (1e-5, 2e-6)
+# the chain (the forward kernel's o and lse, then the backward kernels)
+# against the plain chain (attention_lse_plain's o and lse, then
+# attention_bwd_plain), in BWD_TOL's form. In bf16 the two sides round o
+# apart (an element of o may differ by one ulp: fwd_compare reports how
+# many do), and o enters every gradient through D = rowsum(dO o): the
+# bar doubles BWD_TOL's rtol and allows 0.2% of the largest gradient.
+# f32 keeps BWD_TOL's
+CHAIN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-3)}
+
+
 class SmokeFailure(AssertionError):
     pass
 
@@ -301,7 +365,7 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-KERNELS = {**driver.KERNELS, "flash_attn": fak}
+KERNELS = {**driver.KERNELS, "flash_attn": fak, "flash_attn_bwd": fab}
 
 
 def reset_counts() -> None:
@@ -1008,6 +1072,7 @@ def device_ops(fn, top: int = 6) -> dict:
                  "calls": e.count} for e in rows[:top]]
     return {"kernel_ms": sum(e.self_device_time_total
                              for e in kernels) / 1e3,
+            "kernel_launches": sum(e.count for e in kernels),
             "kernels": head(kernels), "ops": head(ops)}
 
 
@@ -1871,11 +1936,13 @@ def kernel_label(mangled: str) -> str:
     return f"{m.group(1)}<{args.rstrip(',')}>"
 
 
-def flash_attn_build(ptxas: str) -> dict:
-    """Registers and spill bytes of every flash-attention kernel from
-    ``ptxas -v``, and the ``HMMA`` (tensor-core) instructions of each in
-    the library's SASS (``cuobjdump -sass``); every tc instantiation
-    must hold some."""
+def flash_attn_build(ptxas: str, lib: str = "flash_attn",
+                     tc_kernels=("flash_tc_",)) -> dict:
+    """Registers and spill bytes of every kernel of the attention library
+    ``lib`` from ``ptxas -v``, and the ``HMMA`` (tensor-core)
+    instructions of each in the library's SASS (``cuobjdump -sass``);
+    every tc instantiation (one a tc head width of each kernel whose
+    name starts with one of ``tc_kernels``) must hold some."""
     kernels, name = {}, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1892,7 +1959,7 @@ def flash_attn_build(ptxas: str) -> dict:
         if m and name:
             kernels[name]["registers"] = int(m.group(1))
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(build.lib_path("flash_attn"))],
+    sass = subprocess.run([tool, "-sass", str(build.lib_path(lib))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     name = None
@@ -1903,10 +1970,10 @@ def flash_attn_build(ptxas: str) -> dict:
             kernels.setdefault(name, {})["hmma"] = 0
         elif name and "HMMA" in line:
             kernels[name]["hmma"] += 1
-    tc = {k: v for k, v in kernels.items() if k.startswith("flash_tc_")}
-    check(len(tc) == len(fak.TC_DIMS) and all(v.get("hmma", 0) > 0
-                                              for v in tc.values()),
-          f"build: tc kernels without HMMA instructions: {tc}")
+    tc = {k: v for k, v in kernels.items() if k.startswith(tc_kernels)}
+    check(len(tc) == len(fak.TC_DIMS) * len(tc_kernels)
+          and all(v.get("hmma", 0) > 0 for v in tc.values()),
+          f"build: {lib}: tc kernels without HMMA instructions: {tc}")
     check(all("registers" in v for v in kernels.values()),
           f"build: ptxas reported no registers for some kernels: {kernels}")
     return kernels
@@ -2274,6 +2341,460 @@ def flash_attn_kernel_row(captured: dict, launches: dict, by_variant: dict,
             "at_decode": at_decode, **extra}
 
 
+def bwd_variants() -> dict:
+    """Backward wrapper calls by variant since the last reset."""
+    return {f"bwd_{v}": fab.launch_count(v) for v in fab.VARIANTS}
+
+
+def fwd_compare(q, k, v, o, lse, kw: dict) -> dict:
+    """The training form's forward output ``o`` (at ``ATTN_TOL``) and row
+    log-sum-exp ``lse`` (at ``LSE_TOL``) against ``attention_lse_plain``
+    on the same inputs: the largest errors and shares of the allowed
+    error (<= 1 passes); ``want`` holds the plain version's (o, lse)."""
+    want_o, want_lse = attention_lse_plain(q, k, v, **kw)
+    tol = ATTN_TOL[q.dtype]
+    diff = (o.float() - want_o.float()).abs()
+    o_share = float((diff / (tol["atol"] + tol["rtol"] * want_o.float()
+                             .abs())).max())
+    o_err = float(diff.max())
+    o_differs = float((diff > 0).float().mean())
+    del diff
+    check(bool(torch.isfinite(want_lse).all()),
+          "train: a training-form row sees no slot")
+    lse_diff = (lse - want_lse).abs()
+    lse_share = float((lse_diff / (LSE_TOL[0] + LSE_TOL[1]
+                                   * want_lse.abs())).max())
+    share = max(o_share, lse_share)
+    return {"o_max_abs_err": o_err, "o_tolerance_share": o_share,
+            "o_elements_differing": o_differs,
+            "lse_max_abs_err": float(lse_diff.max()),
+            "lse_tolerance_share": lse_share,
+            "lse_range": [float(want_lse.min()), float(want_lse.max())],
+            "tolerance_share": share, "all_close": share <= 1.0,
+            "tolerance": {"o": tol, "lse_atol_rtol": LSE_TOL},
+            "want": (want_o, want_lse)}
+
+
+def grad_compare(got, want, tol: tuple) -> dict:
+    """dq, dk, dv against ``want`` at ``tol`` = (rtol, atol as a share of
+    the largest |want| of the three): the largest error and the largest
+    share of the allowed error (<= 1 passes)."""
+    rtol, arel = tol
+    top = max(float(w.float().abs().max()) for w in want)
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        bar = rtol * w.abs() + arel * top
+        diff = (g - w).abs()
+        out[name] = {"max_abs_err": float(diff.max()),
+                     "tolerance_share": float((diff / bar).max()),
+                     "max_abs": float(w.abs().max())}
+    share = max(c["tolerance_share"] for c in out.values())
+    return {**out, "max_abs_err": max(c["max_abs_err"]
+                                      for c in out.values()),
+            "tolerance_share": share, "all_close": share <= 1.0,
+            "tolerance": {"rtol": rtol, "atol_of_max": arel}}
+
+
+def bwd_compare(q, k, v, o, lse, do, kw: dict, variant: str | None = None,
+                fwd: dict | None = None) -> dict:
+    """A backward variant (the one the wrapper picks, or the one named)
+    against ``attention_bwd_plain`` on the same inputs at ``BWD_TOL`` of
+    the inputs' dtype. With ``fwd`` (``fwd_compare`` of the forward that
+    gave o and lse), also the chain: the same gradients against
+    ``attention_bwd_plain`` on the plain forward's o and lse, at
+    ``CHAIN_TOL``, so that a wrong o or lse cannot go into both sides."""
+    used = variant or fab.variant_for(q, k, v, o, do)
+    got = fab.attention_bwd(q, k, v, o, lse, do, variant=used, **kw)
+    out = {**grad_compare(got, attention_bwd_plain(q, k, v, o, lse, do,
+                                                   **kw), BWD_TOL[q.dtype]),
+           "variant": used}
+    if fwd is not None:
+        want_o, want_lse = fwd.pop("want")
+        chain = grad_compare(got, attention_bwd_plain(
+            q, k, v, want_o, want_lse, do, **kw), CHAIN_TOL[q.dtype])
+        out.update(forward=fwd, chain=chain, all_close=(
+            out["all_close"] and chain["all_close"] and fwd["all_close"]))
+    return out
+
+
+def bwd_at(q, k, v, o, lse, do, kw: dict) -> dict:
+    """The backward kernels at one shape: the variant the wrapper picks
+    and ``simt`` against the plain version in the inputs' dtype, and on
+    f32 copies (whose own forward gives o and lse); the forward's o and
+    lse and the forward-and-backward chain held against the plain
+    versions in both (``bwd_compare`` with ``fwd``); their time (the three
+    launches of one call; the picked variant in turns with simt), the
+    plain version's time, and the backward of
+    ``scaled_dot_product_attention`` on the same inputs (one
+    ``torch.autograd.grad`` over a retained forward: its backward alone)
+    as the library yardstick. The bound counts q, k, v, o, do and lse
+    read once and dq, dk, dv written once over 3.35 TB/s, and 10 d
+    operations a visible pair (the products S and dP recomputed, dV, dK
+    and dQ) over the peak of the inputs' type."""
+    cmp = bwd_compare(q, k, v, o, lse, do, kw,
+                      fwd=fwd_compare(q, k, v, o, lse, kw))
+    cmp_simt = bwd_compare(q, k, v, o, lse, do, kw, "simt")
+    q32, k32, v32, do32 = (f32_copy(t) for t in (q, k, v, do))
+    o32, lse32 = fak.flash_attention_lse(q32, k32, v32, **kw)
+    cmp32 = bwd_compare(q32, k32, v32, o32, lse32, do32, kw,
+                        fwd=fwd_compare(q32, k32, v32, o32, lse32, kw))
+    del q32, k32, v32, do32, o32, lse32
+    B, Hq, S, d = q.shape
+    Hkv = k.shape[1]
+
+    def kernel():
+        return fab.attention_bwd(q, k, v, o, lse, do, **kw)
+
+    def plain():
+        return attention_bwd_plain(q, k, v, o, lse, do, **kw)
+
+    turns = [time_ms(kernel, reps=5)]
+    plain_ms = time_ms(plain, reps=2)
+    cmp_simt["ms"] = time_ms(lambda: fab.attention_bwd(
+        q, k, v, o, lse, do, variant="simt", **kw), reps=3)
+    turns.append(time_ms(kernel, reps=5))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    mask = None
+    if kw.get("window") is not None:
+        mask = window_mask(S, kw["window"], q.device)
+    ref_out = (F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              enable_gqa=Hkv != Hq)
+               if mask is None else F.scaled_dot_product_attention(
+                   *leaves, attn_mask=mask, enable_gqa=Hkv != Hq))
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        ref_out, leaves, do, retain_graph=True), reps=5)
+    del ref_out, leaves, mask
+    pairs = attn_pairs(S, S, kw["causal"], kw.get("window"), 0)
+    elt = q.element_size()
+    bytes_moved = (elt * 4 * (B * Hq * S * d + B * Hkv * S * d)
+                   + 4 * B * Hq * S)
+    ops = 10 * B * Hq * d * pairs
+    rate, kind = ((BF16_TC_OPS_PER_S, "bf16 tensor-core")
+                  if q.dtype == torch.bfloat16 else (FP32_OPS_PER_S, "fp32"))
+    b_ms, by, how = bound(bytes_moved, ops, rate, kind)
+    return {**cmp, "all_close": (cmp["all_close"] and cmp32["all_close"]
+                                 and cmp_simt["all_close"]),
+            "f32_copy": cmp32, "simt": cmp_simt, "simt_ms": cmp_simt["ms"],
+            "ms": float(np.mean(turns)), "ms_turns": turns,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
+            "bound_terms": how,
+            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "d": d,
+                      "dtype": str(q.dtype), "causal": kw["causal"],
+                      "window": kw.get("window"), "visible_pairs": pairs,
+                      "q_contiguous": q.is_contiguous()}}
+
+
+def flash_attn_bwd_row(captured: tuple, launches: dict, by_variant: dict,
+                       dev) -> dict:
+    """The backward kernels at the train phase's own inputs (one layer's
+    q, k, v, o, lse and do of a bf16 step) and at ``BWD_EXTRA``'s GQA and
+    window shape on seeded inputs (their o and lse from the forward
+    kernel)."""
+    q, k, v, o, lse, do = (t.detach() for t in captured[:6])
+    kw = captured[6]
+    cfg = configs.ARCHS[LM_ARCH]
+    check(q.shape == (TRAIN_BATCH, cfg.n_heads, TRAIN_SEQ, cfg.hd)
+          and q.dtype == torch.bfloat16 and kw == {"causal": True,
+                                                   "window": cfg.window},
+          f"train: captured backward inputs {tuple(q.shape)} {q.dtype} {kw}")
+    at_train = bwd_at(q, k, v, o, lse, do, kw)
+    del q, k, v, o, lse, do
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    extra = {}
+    for name, (B, Hq, Hkv, S, d, window) in BWD_EXTRA.items():
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16) for shape in ((B, Hq, S, d), (B, Hkv, S, d),
+                                          (B, Hkv, S, d), (B, Hq, S, d)))
+        ekw = {"causal": True, "window": window}
+        o, lse = fak.flash_attention_lse(q, k, v, **ekw)
+        extra[name] = bwd_at(q, k, v, o, lse, do, ekw)
+        del q, k, v, do, o, lse
+    cases = [at_train, *extra.values()]
+    ok = all(c["all_close"] for c in cases)
+    check(ok, "flash_attn_bwd: kernel differs from its plain version beyond "
+          "the bar (share of the allowed error, bf16 variant / bf16 simt / "
+          "f32; forward o and lse, bf16 / f32; chain, bf16 / f32): "
+          + ", ".join(
+              f"{c['variant']} {c['tolerance_share']:.3g} / "
+              f"{c['simt']['tolerance_share']:.3g} / "
+              f"{c['f32_copy']['tolerance_share']:.3g}; "
+              f"{c['forward']['tolerance_share']:.3g} / "
+              f"{c['f32_copy']['forward']['tolerance_share']:.3g}; "
+              f"{c['chain']['tolerance_share']:.3g} / "
+              f"{c['f32_copy']['chain']['tolerance_share']:.3g}"
+              for c in cases))
+    check([c["variant"] for c in cases] == ["tc"] * len(cases),
+          f"flash_attn_bwd: the cases took {[c['variant'] for c in cases]}")
+    return {"name": "flash_attn_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+            "replaces": "src/repro/models/layers.py:41 (XLA's autodiff of "
+                        "_chunk_attention, the jnp twin of "
+                        "src/repro/kernels/flash_attn/kernel.py:83)",
+            "launches": launches["train"], "launches_by_path": launches,
+            "launches_by_variant": by_variant, **at_train,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "f32_max_abs_err": max(c["f32_copy"]["max_abs_err"]
+                                   for c in cases),
+            "all_close": ok,
+            "library_call": "torch.autograd.grad of "
+                            "torch.nn.functional.scaled_dot_product_"
+                            "attention (its backward; timed here only, the "
+                            "port never calls it)", **extra}
+
+
+def train_host_split(model, opt, batch, cfg, tcfg) -> dict:
+    """Where a bf16 step's wall time goes, on the host's clock (a sync
+    before and after each part): the loss and gradients, the AdamW
+    update alone, and whole steps with remat "none" (no selective
+    checkpointing: no recompute and no per-op policy calls). Run after
+    the measured steps; the counts are not read again."""
+    def wall(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (_, grads), grad_ms = wall(lambda: train_lib._value_and_grad(model,
+                                                                 batch))
+    params = dict(model.named_parameters())
+    _, adamw_ms = wall(lambda: train_lib.adamw_update(grads, opt, params,
+                                                      tcfg.opt))
+    del grads
+    none_cfg = cfg.with_(remat="none")
+    model.cfg = none_cfg
+    step_none = train_lib.make_train_step(none_cfg, tcfg)
+    none_ms = [wall(lambda: step_none(model, opt, batch))[1]
+               for _ in range(3)]
+    model.cfg = cfg
+    return {"loss_and_grads_ms": grad_ms, "adamw_ms": adamw_ms,
+            "step_ms_remat_none": none_ms,
+            "peak_allocated_bytes_so_far": torch.cuda.max_memory_allocated()}
+
+
+def train_grad_check(cfg, dev) -> dict:
+    """2 layers of the full width at f32: loss and gradients through the
+    kernels (simt forward, backward kernels) against the same model with
+    ``attention_plain`` under autograd in the attention's place, on the
+    same weights and batch."""
+    small = cfg.with_(n_layers=TRAIN_CHECK_LAYERS, act_dtype="float32")
+    model = transformer.DecoderLM(small, device=dev, train=True,
+                                  generator=torch.Generator(
+                                      device=dev).manual_seed(SEED + 31))
+    toks, labels = lm_batch(SEED + 31, 0, TRAIN_CHECK_BATCH,
+                            TRAIN_CHECK_SEQ, small.vocab, device=dev)
+    params = list(model.parameters())
+
+    def grads():
+        loss = transformer.loss_fn(model, toks, labels)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    before = (fak.launch_count("simt"), fab.launch_count(),
+              fab.launch_count("simt"))
+    loss_k, g_k = grads()
+    launched = (fak.launch_count("simt") - before[0],
+                fab.launch_count() - before[1],
+                fab.launch_count("simt") - before[2])
+
+    def plain(q, k, v, *, causal, window):
+        return attention_plain(q, k, v, causal=causal, window=window)
+
+    with patched(fab, "flash_attention_train", plain):
+        loss_p, g_p = grads()
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+                for a, b in zip(g_k, g_p))
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(launched == (2 * TRAIN_CHECK_LAYERS, 3 * TRAIN_CHECK_LAYERS,
+                       TRAIN_CHECK_LAYERS),
+          f"train: the gradient check launched (simt, backward, backward "
+          f"simt) {launched}")
+    check(worst <= TRAIN_CHECK_REL and loss_rel <= 1e-5,
+          f"train: kernel-route gradients differ from attention_plain's by "
+          f"{worst:.3g} of a leaf's largest (bar {TRAIN_CHECK_REL}), loss "
+          f"by {loss_rel:.3g}")
+    return {"layers": TRAIN_CHECK_LAYERS, "batch": TRAIN_CHECK_BATCH,
+            "seq": TRAIN_CHECK_SEQ, "dtype": "float32",
+            "loss": float(loss_k), "loss_rel_err": loss_rel,
+            "grad_worst_share_of_leaf_max": worst, "bar": TRAIN_CHECK_REL,
+            "launches_simt_bwd_bwdsimt": launched}
+
+
+def train_cli(tmp: str) -> dict:
+    """The reference's launcher at the full config (it forces f32, so the
+    simt forward and the f32 backward): ``--steps 20 --batch 4 --seq
+    2048 --ckpt-dir tmp``, whose own check asserts the loss fell; then
+    ``--resume`` from its newest checkpoint (after step 10, holding 11
+    steps) must give the first run's losses of steps 11-19 bit for bit.
+    The first run's steps are timed (a sync before and after each, where
+    the loop reads the loss anyway), with its peak allocated bytes."""
+    args = ["--arch", LM_ARCH, "--steps", str(TRAIN_CLI_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir", tmp]
+    step_ms = []
+
+    def timed_step(cfg, tcfg):
+        fn = train_lib.make_train_step(cfg, tcfg)
+
+        def run(*a):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(train_launcher, "make_train_step", timed_step):
+        first = train_launcher.main(args)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts()
+    by_variant = {**variant_counts(), **bwd_variants()}
+    free()
+    t0 = time.perf_counter()
+    second = train_launcher.main(args + ["--resume"])
+    second_s = time.perf_counter() - t0
+    resumed = TRAIN_CLI_STEPS - len(second)
+    check(len(first) == TRAIN_CLI_STEPS and resumed == 11,
+          f"train cli: {len(first)} steps, resumed at {resumed}")
+    check(second == first[resumed:], f"train cli: the resumed losses "
+          f"{second} are not the first run's {first[resumed:]}")
+    L = configs.ARCHS[LM_ARCH].n_layers
+    check(by_variant == {"tc": 0, "decode": 0,
+                         "simt": 2 * L * TRAIN_CLI_STEPS, "bwd_tc": 0,
+                         "bwd_simt": L * TRAIN_CLI_STEPS}
+          and launches["flash_attn_bwd"] == 3 * L * TRAIN_CLI_STEPS,
+          f"train cli: launches {launches}, variants {by_variant}")
+    ms = np.array(step_ms)
+    return {"args": args, "losses": first, "resumed_losses": second,
+            "resumed_at": resumed, "dtype": "float32",
+            "step_ms": {"p50": float(np.percentile(ms, 50)),
+                        "p99": float(np.percentile(ms, 99)),
+                        "mean": float(ms.mean()), "each": ms.tolist()},
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(ms.mean()) * 1e3,
+            "peak_allocated_bytes": peak, "seconds": first_s,
+            "resume_seconds": second_s, "launches": launches,
+            "flash_attn_by_variant": by_variant,
+            "ckpt_steps": sorted(os.listdir(tmp))}
+
+
+def train_phase(dev) -> tuple[dict, dict]:
+    """qwen1.5-0.5b at full width and depth in its own bf16 (remat
+    "dots"), seeded weights, ``lm_batch`` at 4 x 2048 tokens: 1 warm-up
+    and 8 measured ``make_train_step`` steps. Every step's loss is
+    finite; every forward and recompute launches tc once a layer and the
+    backward kernels once a layer each; no index kernel launches. Then
+    the model-level gradient check, the reference's launcher at the full
+    config with its resume, one profiled step, and the backward kernels'
+    row. Returns the phase's line and the row."""
+    cfg = configs.ARCHS[LM_ARCH]
+    L = cfg.n_layers
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = train_lib.TrainCfg()
+    model, opt = train_lib.init_train_state(SEED, cfg, tcfg, device=dev)
+    step_fn = train_lib.make_train_step(cfg, tcfg)
+    batches = []
+    for s in range(TRAIN_WARMUP + TRAIN_STEPS):
+        toks, labels = lm_batch(SEED, s, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab,
+                                device=dev)
+        batches.append({"tokens": toks, "labels": labels})
+    losses, step_s, per_step = [], [], []
+    captured = []
+
+    def capture(orig):
+        def run(q, k, v, o, lse, do, causal, window, variant=None):
+            if not captured:
+                captured.append((q, k, v, o, lse, do,
+                                 {"causal": causal, "window": window}))
+            return orig(q, k, v, o, lse, do, causal, window, variant)
+        return run
+
+    for b in batches[:TRAIN_WARMUP]:
+        model, opt, m = step_fn(model, opt, b)
+        losses.append(float(m["loss"]))
+    sync()
+    reset_counts()
+    with patched(fab, "_backward", capture(fab._backward)):
+        for i, b in enumerate(batches[TRAIN_WARMUP:]):
+            before = {**counts(), **variant_counts(), **bwd_variants()}
+            sync()
+            t0 = time.perf_counter()
+            model, opt, m = step_fn(model, opt, b)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            after = {**counts(), **variant_counts(), **bwd_variants()}
+            per_step.append({k: after[k] - before[k] for k in after})
+            if i < TRAIN_STEPS - 1:
+                captured.clear()
+    launches = counts()
+    by_variant = {**variant_counts(), **bwd_variants()}
+    by_kernel = {name: fab.launch_count(name) for name in fab.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(x) for x in losses),
+          f"train: a loss is not finite: {losses}")
+    want_step = {"tc": 2 * L, "simt": 0, "decode": 0,
+                 "flash_attn_bwd": 3 * L, "bwd_tc": L, "bwd_simt": 0}
+    bad = [p for p in per_step if any(p[k] != n for k, n in
+                                      want_step.items())]
+    check(not bad, f"train: a step launched {bad[:1]}, not {want_step}")
+    check(by_kernel == dict.fromkeys(fab.KERNELS, L * TRAIN_STEPS),
+          f"train: backward kernels launched {by_kernel}")
+    check(all(v == 0 for k, v in launches.items()
+              if k not in ("flash_attn", "flash_attn_bwd")),
+          f"train: index kernels launched: {launches}")
+    prof = device_ops(lambda: step_fn(model, opt, batches[-1]), top=16)
+    bwd_ms = {re.sub(r".*::(flash_bwd_\w+?)_kernel.*", r"\1", k["name"]):
+              k["ms"] / k["calls"] for k in prof.get("kernels", [])
+              if "flash_bwd" in k["name"]}
+    host = train_host_split(model, opt, batches[-1], cfg, tcfg)
+    params = transformer.param_count(model)
+    del model, opt, batches
+    free()
+    grad_check = train_grad_check(cfg, dev)
+    free()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        cli = train_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free()
+    ms = np.array(step_s) * 1e3
+    out = {"phase": "train", "arch": LM_ARCH, "dtype": cfg.act_dtype,
+           "remat": cfg.remat, "params": params, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+           "losses": losses,
+           "step_ms": {"p50": float(np.percentile(ms, 50)),
+                       "p99": float(np.percentile(ms, 99)),
+                       "mean": float(ms.mean()), "each": ms.tolist()},
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(ms.mean()) * 1e3,
+           "peak_allocated_bytes": peak,
+           "device_ms_of_profiled_step": prof.get("kernel_ms"),
+           "device_share_of_p50": (prof.get("kernel_ms", 0.0)
+                                   / float(np.percentile(ms, 50))),
+           "launches": launches, "flash_attn_by_variant": by_variant,
+           "flash_attn_bwd_by_kernel": by_kernel,
+           "launches_per_step": want_step,
+           "profile_step": prof, "host_split": host,
+           "grad_check": grad_check, "cli": cli}
+    row = flash_attn_bwd_row(captured[0], {
+        "train": launches["flash_attn_bwd"],
+        "train_grad_check": grad_check["launches_simt_bwd_bwdsimt"][1],
+        "train_cli": cli["launches"]["flash_attn_bwd"]}, {
+        "train": {k: by_variant[k] for k in ("bwd_tc", "bwd_simt")},
+        "train_cli": {k: cli["flash_attn_by_variant"][k]
+                      for k in ("bwd_tc", "bwd_simt")}}, dev)
+    row["kernel_ms_in_step"] = bwd_ms
+    out["flash_attn_launches"] = {"train": launches["flash_attn"],
+                                  "train_cli": cli["launches"]["flash_attn"]}
+    return out, row
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2295,15 +2816,22 @@ def main() -> int:
     t0 = time.perf_counter()
     report = build.build()
     build_s = time.perf_counter() - t0
-    if "flash_attn" not in report:  # a library left by an earlier run
-        report.update(build.build(["flash_attn"], force=True))
+    stale = [k for k in ("flash_attn", "flash_attn_bwd") if k not in report]
+    if stale:  # libraries left by an earlier run: their ptxas reports
+        report.update(build.build(stale, force=True))
     flash_build = flash_attn_build(report["flash_attn"]["ptxas"])
+    bwd_build = flash_attn_build(
+        report["flash_attn_bwd"]["ptxas"], "flash_attn_bwd",
+        ("flash_bwd_dkdv_tc_", "flash_bwd_dq_tc_"))
     emit({"phase": "build", "seconds": build_s,
           "kernels": {k: v["seconds"] for k, v in report.items()},
-          "flash_attn": flash_build})
+          "flash_attn": flash_build, "flash_attn_bwd": bwd_build})
 
     lm, flash_row = lm_phase(dev)
     emit(lm)
+    train, bwd_row = train_phase(dev)
+    emit(train)
+    flash_row["launches_by_path"].update(train["flash_attn_launches"])
 
     main_run = run_server("main", "spac-h", N_MAIN, BATCH, STEPS, WARMUP,
                           dev, coord_bits=20)
@@ -2382,7 +2910,7 @@ def main() -> int:
             row_bbox_kernel_row(porth_run, main_run, by_path("row_bbox")),
             sieve_kernel_row(porth_run, by_path("sieve"), dev),
             morton_kernel_row(zd_run["boot"], spacz_pts, by_path("morton")),
-            flash_row]
+            flash_row, bwd_row]
     del main_run, porth_run, kd_run, zd_run, flat_run, spacz_pts, spacz
     free()
     driver_launches = driver_phase(dev)

@@ -47,7 +47,7 @@ def smoke(arch_id: str) -> ModelCfg:
     kw = dict(
         n_layers=len(cfg.pattern) * min(2, cfg.n_groups),
         d_model=128, n_heads=4, n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads
-        else 4, head_dim=32, d_ff=256, vocab=512,
+        else 4, head_dim=32, d_ff=256, vocab=512, loss_chunk=128,
     )
     if cfg.n_kv_heads == cfg.n_heads:
         kw["n_heads"] = kw["n_kv_heads"] = 4

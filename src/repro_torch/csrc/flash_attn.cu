@@ -73,6 +73,12 @@
 // d. Causal and window masks cut the kv loop to the tiles a block can see
 // (when kv positions are slot indices).
 //
+// lse: the simt and tc entries take an optional (B, Hq, Sq) f32 output of
+// each row's log-sum-exp (m + log l, in natural units of the scaled
+// scores; +inf on a row that sees no slot), which the training forward
+// saves for the backward kernels of flash_attn_bwd.cu. A null lse (every
+// serving call) writes nothing more, and the outputs are the same.
+//
 // Built with -fmad=false (the kNN kernels' bit-equality needs it): where
 // tc and decode want a fused multiply-add they write __fmaf_rn.
 
@@ -97,6 +103,7 @@ struct Args {
   const void* v;
   void* o;
   const int32_t* kpos;
+  float* lse;  // (B, Hq, Sq) f32 row log-sum-exp, or null (simt, tc)
   long long sqb, sqh, sqs;
   long long skb, skh, sks;
   long long svb, svh, svs;
@@ -269,6 +276,13 @@ __global__ void __launch_bounds__(kThreads)
 
   const float den0 = fmaxf(l0, 1e-30f);
   const float den1 = fmaxf(l1, 1e-30f);
+  if (a.lse != nullptr && lane == 0) {
+    float* L = a.lse + (static_cast<long long>(b) * a.hq + h) * a.sq;
+    if (q0 + r0 < a.sq) L[q0 + r0] = l0 > 0.f ? m0 + logf(l0) : INFINITY;
+    if (q0 + r0 + 1 < a.sq) {
+      L[q0 + r0 + 1] = l1 > 0.f ? m1 + logf(l1) : INFINITY;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
     const int c = lane + 32 * i;
@@ -611,6 +625,15 @@ __global__ void __launch_bounds__(kThreads, min_ctas<D>())
   const float den0 = fmaxf(l0, 1e-30f);
   const float den1 = fmaxf(l1, 1e-30f);
   const int r0 = q0 + warp * 16 + g;
+  if (a.lse != nullptr && tig == 0) {
+    // m and the exponentials are in log2 units of the scaled scores
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* L = a.lse + (static_cast<long long>(b) * a.hq + h) * a.sq;
+    if (r0 < a.sq) L[r0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : INFINITY;
+    if (r0 + 8 < a.sq) {
+      L[r0 + 8] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : INFINITY;
+    }
+  }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = 8 * n + 2 * tig;
@@ -1075,17 +1098,20 @@ int launch_typed(const Args& a, const Split& sp, int batch, cudaStream_t s) {
 
 // q: (B, Hq, Sq, d), k/v: (B, Hkv, Skv, d), out: (B, Hq, Sq, d), each with
 // its own (batch, head, sequence) strides in elements and a contiguous last
-// dimension; kpos: (Skv,) int32 or null. dtype 0 = f32, 1 = bf16, for all
-// four. window <= 0 means none. Each entry launches on `stream` and returns
-// the launch's cudaError_t (0 on success); the wrapper checks d <= 256,
-// Hq % Hkv == 0 and which variant the inputs fit.
+// dimension; kpos: (Skv,) int32 or null; lse: (B, Hq, Sq) f32 contiguous or
+// null, each row's log-sum-exp of its scaled visible scores (+inf on a row
+// that sees no slot) for the backward (simt and tc; decode takes null).
+// dtype 0 = f32, 1 = bf16, for all four. window <= 0 means none. Each
+// entry launches on `stream` and returns the launch's cudaError_t (0 on
+// success); the wrapper checks d <= 256, Hq % Hkv == 0 and which variant
+// the inputs fit.
 
 // simt: any d <= 256, either dtype.
 extern "C" int flash_attn_launch(
     const void* q, const void* k, const void* v, void* out,
-    const void* kpos, int dtype, int batch, int hq, int hkv, int sq, int skv,
-    int d, long long sqb, long long sqh, long long sqs, long long skb,
-    long long skh, long long sks, long long svb, long long svh,
+    const void* kpos, void* lse, int dtype, int batch, int hq, int hkv,
+    int sq, int skv, int d, long long sqb, long long sqh, long long sqs,
+    long long skb, long long skh, long long sks, long long svb, long long svh,
     long long svs, long long sob, long long soh, long long sos,
     int q_offset, int causal, int window, float scale, void* stream) {
   if (batch <= 0 || hq <= 0 || sq <= 0) return 0;
@@ -1093,6 +1119,7 @@ extern "C" int flash_attn_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{q,   k,   v,   out, static_cast<const int32_t*>(kpos),
+         static_cast<float*>(lse),
          sqb, sqh, sqs,
          skb, skh, sks,
          svb, svh, svs,
@@ -1112,9 +1139,9 @@ extern "C" int flash_attn_launch(
 // (batch, head, sequence) strides of q, k and v 16-byte aligned.
 extern "C" int flash_attn_tc_launch(
     const void* q, const void* k, const void* v, void* out,
-    const void* kpos, int dtype, int batch, int hq, int hkv, int sq, int skv,
-    int d, long long sqb, long long sqh, long long sqs, long long skb,
-    long long skh, long long sks, long long svb, long long svh,
+    const void* kpos, void* lse, int dtype, int batch, int hq, int hkv,
+    int sq, int skv, int d, long long sqb, long long sqh, long long sqs,
+    long long skb, long long skh, long long sks, long long svb, long long svh,
     long long svs, long long sob, long long soh, long long sos,
     int q_offset, int causal, int window, float scale, void* stream) {
   if (batch <= 0 || hq <= 0 || sq <= 0) return 0;
@@ -1122,6 +1149,7 @@ extern "C" int flash_attn_tc_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{q,   k,   v,   out, static_cast<const int32_t*>(kpos),
+         static_cast<float*>(lse),
          sqb, sqh, sqs,
          skb, skh, sks,
          svb, svh, svs,
@@ -1137,19 +1165,20 @@ extern "C" int flash_attn_tc_launch(
 // aligned (base, strides and d), loaded 16 bytes a lane.
 extern "C" int flash_attn_decode_launch(
     const void* q, const void* k, const void* v, void* out,
-    const void* kpos, int dtype, int batch, int hq, int hkv, int sq, int skv,
-    int d, long long sqb, long long sqh, long long sqs, long long skb,
-    long long skh, long long sks, long long svb, long long svh,
+    const void* kpos, void* lse, int dtype, int batch, int hq, int hkv,
+    int sq, int skv, int d, long long sqb, long long sqh, long long sqs,
+    long long skb, long long skh, long long sks, long long svb, long long svh,
     long long svs, long long sob, long long soh, long long sos,
     int q_offset, int causal, int window, float scale, void* part, int lo,
     int hi, int chunk, int splits, int vec, void* stream) {
   if (batch <= 0 || hq <= 0) return 0;
   if (sq != 1 || d <= 0 || d > 256 || hkv <= 0 || hq % hkv != 0 ||
-      chunk <= 0 || splits <= 0 || splits > dec::kMaxSplits ||
+      lse != nullptr || chunk <= 0 || splits <= 0 || splits > dec::kMaxSplits ||
       part == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{q,   k,   v,   out, static_cast<const int32_t*>(kpos),
+         static_cast<float*>(lse),
          sqb, sqh, sqs,
          skb, skh, sks,
          svb, svh, svs,

@@ -1,1 +1,1 @@
-from . import points  # noqa: F401
+from . import points, tokens  # noqa: F401

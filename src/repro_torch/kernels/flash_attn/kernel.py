@@ -24,6 +24,12 @@ Each wrapper call adds one to :func:`launch_count` and one to
 ``launch_count(variant)``. A build or launch error raises; no other
 variant is tried.
 
+:func:`flash_attention_lse` is the training form's forward: ``Sq ==
+Skv``, no ``q_offset`` or ``k_pos``, ``d`` a multiple of 16 up to 128; it
+launches ``tc`` where :func:`variant_for` names it and ``simt`` otherwise
+(never ``decode``), and the kernel also writes each row's log-sum-exp for
+the backward kernels (``backward.py``).
+
 Only the last dimension of q, k and v must be contiguous: a cache's
 valid prefix ``cache[:, :, :n]`` and the ``transpose(1, 2)`` of a
 projection go in as they are. The output is allocated as ``(B, Sq, Hq,
@@ -40,7 +46,7 @@ import functools
 import torch
 
 from .. import build
-from .ref import attention_plain, kv_span
+from .ref import attention_lse_plain, attention_plain, kv_span
 
 MAX_D = 256
 VARIANTS = ("tc", "decode", "simt")
@@ -77,7 +83,7 @@ def _fn(variant: str):
         fn = getattr(build.load("flash_attn"), _ENTRY[variant])
         fn.restype = ctypes.c_int
         ll, i = ctypes.c_longlong, ctypes.c_int
-        args = ([ctypes.c_void_p] * 5 + [i] * 7 + [ll] * 12
+        args = ([ctypes.c_void_p] * 6 + [i] * 7 + [ll] * 12
                 + [i, i, i, ctypes.c_float])
         if variant == "decode":
             args += [ctypes.c_void_p] + [i] * 5
@@ -112,6 +118,42 @@ def _check(q, k, v, window, k_pos):
                               or k_pos.dtype != torch.int32):
         raise ValueError(f"attention: k_pos must be ({k.shape[2]},) int32, "
                          f"got {tuple(k_pos.shape)} {k_pos.dtype}")
+
+
+def check_train(q, k, v, window) -> None:
+    """Raise unless (q, k, v) is the training form of the call: ``Sq ==
+    Skv``, ``d`` a multiple of 16 up to 128, f32 or bf16, ``Hq % Hkv ==
+    0``, one device."""
+    _check(q, k, v, window, None)
+    d = q.shape[3]
+    if q.shape[2] != k.shape[2] or d % 16 or d > 128:
+        raise ValueError(f"attention (training form): needs Sq == Skv and d "
+                         f"a multiple of 16 up to 128, got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, window=None):
+    """The training form's forward: ``(out, lse)`` with ``out`` as
+    :func:`flash_attention` gives it (``q_offset = None``, no ``k_pos``)
+    and ``lse`` (B, Hq, Sq) f32, each row's log-sum-exp of its scaled
+    visible scores (:func:`ref.attention_lse_plain`). CUDA tensors take
+    ``tc`` (bf16 where :func:`variant_for` names it) or ``simt``."""
+    check_train(q, k, v, window)
+    return _forward_lse(q, k, v, causal, window)
+
+
+def _forward_lse(q, k, v, causal, window):
+    """:func:`flash_attention_lse` on inputs already checked."""
+    dev = q.device
+    if dev.type == "cpu":
+        return attention_lse_plain(q, k, v, causal=causal, window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"attention: unsupported device {dev}")
+    variant = "tc" if variant_for(q, k, v) == "tc" else "simt"
+    B, Hq, Sq, _ = q.shape
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    out = _run(variant, q, k, v, causal, window, None, None, lse)
+    return out, lse
 
 
 def _inner(t):
@@ -178,7 +220,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         raise ValueError(f"attention: unsupported device {dev}")
     _check(q, k, v, window, k_pos)
     return _run(variant_for(q, k, v), q, k, v, causal, window,
-                q_offset, k_pos)
+                q_offset, k_pos, None)
 
 
 def _launch(variant: str, q, k, v, *, causal: bool = True, window=None,
@@ -197,10 +239,10 @@ def _launch(variant: str, q, k, v, *, causal: bool = True, window=None,
         raise ValueError(f"attention: the {variant} variant does not take "
                          f"q {tuple(q.shape)} {q.dtype} with strides "
                          f"{q.stride()}, k strides {k.stride()}")
-    return _run(variant, q, k, v, causal, window, q_offset, k_pos)
+    return _run(variant, q, k, v, causal, window, q_offset, k_pos, None)
 
 
-def _run(variant, q, k, v, causal, window, q_offset, k_pos):
+def _run(variant, q, k, v, causal, window, q_offset, k_pos, lse):
     B, Hq, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if q_offset is None:
@@ -213,6 +255,7 @@ def _run(variant, q, k, v, causal, window, q_offset, k_pos):
         k_pos = k_pos.contiguous()
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if k_pos is None else k_pos.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], int(q_offset), int(causal),

@@ -13,7 +13,13 @@ kernel does) and cast to ``q.dtype`` at the end. Scores are formed for
 a few query rows at a time, so memory stays bounded at long sequences;
 each row's softmax is exact over all its slots.
 
-Beside it, plain mirrors of two CUDA variants' arithmetic, so the CPU
+:func:`attention_lse_plain` also returns each row's log-sum-exp, which
+the training form's forward saves, and :func:`attention_bwd_plain` is
+the backward kernel's (``csrc/flash_attn_bwd.cu``) arithmetic: the
+gradients of :func:`attention_plain` from ``(q, k, v, o, lse, do)``, by
+FlashAttention-2's recomputation of ``p`` from the saved log-sum-exp.
+
+Beside them, plain mirrors of two CUDA variants' arithmetic, so the CPU
 tests can hold each design against :func:`attention_plain`:
 :func:`attention_split_plain` (``decode``: the kv span cut into chunks,
 a softmax per chunk, the chunks merged in order) and
@@ -84,13 +90,25 @@ def attention_plain(q, k, v, *, causal: bool, window=None, q_offset=None,
     ``causal``, at or below the query's and, with a ``window``, above the
     query's minus ``window``. q head h reads kv head ``h // (Hq / Hkv)``.
     """
+    return _attention(q, k, v, causal, window, q_offset, k_pos)[0]
+
+
+def attention_lse_plain(q, k, v, *, causal: bool, window=None,
+                        q_offset=None):
+    """:func:`attention_plain` and each row's log-sum-exp of its scaled
+    visible scores, (B, Hq, Sq) f32: ``m + log(l)``, ``+inf`` on a row
+    that sees no slot."""
+    return _attention(q, k, v, causal, window, q_offset, None)
+
+
+def _attention(q, k, v, causal, window, q_offset, k_pos):
     B, Hq, Sq, d = q.shape
     Skv = k.shape[2]
     q_offset, kf, vf, kp = _prepare(q, k, v, q_offset, k_pos)
     dev = q.device
     qf = q.float() * (1.0 / (d ** 0.5))
     rows = max(1, _SCORE_BUDGET // max(1, B * Hq * Skv))
-    out = []
+    out, lse = [], []
     for a in range(0, Sq, rows):
         qc = qf[:, :, a:a + rows]
         qp = q_offset + a + torch.arange(qc.shape[2], device=dev)
@@ -99,9 +117,51 @@ def attention_plain(q, k, v, *, causal: bool, window=None, q_offset=None,
         s = torch.where(mask, s, NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.where(mask, torch.exp(s - m), 0.0)
-        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-        out.append(torch.einsum("bhqk,bhkd->bhqd", p, vf) / l)
-    return torch.cat(out, dim=2).to(q.dtype)
+        l = p.sum(dim=-1, keepdim=True)
+        out.append(torch.einsum("bhqk,bhkd->bhqd", p, vf)
+                   / l.clamp_min(1e-30))
+        lse.append(torch.where(l > 0, m + torch.log(l), torch.inf)[..., 0])
+    return torch.cat(out, dim=2).to(q.dtype), torch.cat(lse, dim=2)
+
+
+def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool, window=None,
+                        q_offset=None):
+    """Gradients ``(dq, dk, dv)`` of :func:`attention_plain` (the kernel
+    takes ``q_offset = None`` and ``Sq == Skv``, the training form) at
+    ``do``, from the forward's output ``o`` and ``lse``, each in
+    its input's dtype, by the backward kernel's arithmetic in f32: q
+    scaled before the products; ``p = exp(s - lse)`` on visible slots, 0
+    elsewhere; ``D = rowsum(do * o)`` from the forward's output ``o``;
+    ``dp = do v^T``, ``ds = p (dp - D)``; ``dv = p^T do`` and ``dk = ds^T
+    (q * scale)`` summed over the q heads of each kv head's group, ``dq =
+    ds k * scale``."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    q_offset, kf, vf, kp = _prepare(q, k, v, q_offset, None)
+    dev = q.device
+    scale = 1.0 / (d ** 0.5)
+    qs = q.float() * scale
+    dof = do.float()
+    delta = (dof * o.float()).sum(dim=-1)
+    dq = torch.empty((B, Hq, Sq, d), device=dev)
+    dk = torch.zeros((B, Hq, Skv, d), device=dev)
+    dv = torch.zeros((B, Hq, Skv, d), device=dev)
+    rows = max(1, _SCORE_BUDGET // max(1, B * Hq * Skv))
+    for a in range(0, Sq, rows):
+        sl = slice(a, a + rows)
+        qp = q_offset + a + torch.arange(qs[:, :, sl].shape[2], device=dev)
+        mask = _visible(kp, qp, causal, window)
+        s = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, sl], kf)
+        p = torch.where(mask, torch.exp(s - lse[:, :, sl, None]), 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof[:, :, sl], vf)
+        ds = p * (dp - delta[:, :, sl, None])
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, dof[:, :, sl])
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qs[:, :, sl])
+        dq[:, :, sl] = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    group = Hq // Hkv
+    dk = dk.view(B, Hkv, group, Skv, d).sum(dim=2)
+    dv = dv.view(B, Hkv, group, Skv, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_split_plain(q, k, v, *, chunk: int, causal: bool,

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels.flash_attn import backward as fab
 from ..kernels.flash_attn import kernel as fa
 
 
@@ -54,7 +55,19 @@ def _chunk_attention(q, k, v, *, causal: bool, window, q_offset: int,
     ``kv_len`` slots of a partly filled cache, as a view; ``k_positions``
     (Skv,) int32 gives explicit kv positions (ring caches; -1 = empty).
     One kernel launch for CUDA tensors, the plain version for CPU ones.
+
+    With grad mode on and an input that requires grad, the call must be
+    the training form (``Sq == Skv``, ``q_offset`` 0, no cache) and goes
+    through :func:`backward.flash_attention_train`, whose backward is the
+    backward kernels (their plain version on the CPU).
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if kv_len is not None or k_positions is not None or \
+                q_offset != k.shape[2] - q.shape[2]:
+            raise ValueError("attention: gradients need the training form "
+                             "(no cache, queries over the whole sequence)")
+        return fab.flash_attention_train(q, k, v, causal=causal,
+                                         window=window)
     if k_positions is None and kv_len is not None:
         k, v = k[:, :, :kv_len], v[:, :, :kv_len]
     return fa.flash_attention(q, k, v, causal=causal, window=window,

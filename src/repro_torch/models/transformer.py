@@ -10,6 +10,20 @@ with the group axis unstacked: ``groups.{g}.pos{j}.mixer.wq`` is
 ``params["groups"][f"pos{j}"]["mixer"]["wq"][g]``, in the same layout;
 :func:`load_reference_params` fills a model from that tree.
 
+Training (``DecoderLM(..., train=True)``): :func:`loss_fn` is the
+reference's chunked cross-entropy, and ``cfg.remat`` checkpoints each
+layer group with ``torch.utils.checkpoint`` when grad mode is on:
+``"full"`` recomputes the group in the backward, ``"dots"`` saves the
+products without batch dimensions (the projections, whose einsums lower
+to ``bmm`` over a batch of one) and recomputes the rest, attention
+included (the counterpart of ``checkpoint_dots_with_no_batch_dims``),
+``"none"`` saves everything. The reference's ``scan_layers`` has no
+counterpart: the layers run as a Python loop. :func:`reference_tree` and
+:func:`from_reference_tree` map any ``{parameter name: tensor}`` dict
+(the parameters, the optimizer's moments) to the reference's tree with
+the group axis stacked, and back; :func:`reference_params` is the
+inverse of :func:`load_reference_params`.
+
 Caches keep the reference's stacked layout (``layers.pos{j}.k`` is
 ``(G, B, Hkv, W, hd)``), but ``cache["len"]`` is a host int known to the
 caller, so a decode step reads nothing back and attention gets the
@@ -21,10 +35,13 @@ each slot's position in ``cache["pos"]`` as in the reference.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt_lib
 
 from ..device import resolve_device
 from . import layers
@@ -93,10 +110,12 @@ class DecoderLayer(nn.Module):
 class DecoderLM(nn.Module):
     """The decoder LM of ``cfg`` with weights drawn from ``generator``
     (default: seed 0 on the model's device), in ``cfg.act_dtype``, built
-    for serving (no gradients). ``device=None`` means the card and raises
-    on a host without one (:func:`repro_torch.device.resolve_device`)."""
+    for serving (no gradients) or, with ``train=True``, with parameters
+    that require grad. ``device=None`` means the card and raises on a
+    host without one (:func:`repro_torch.device.resolve_device`)."""
 
-    def __init__(self, cfg: ModelCfg, device=None, generator=None):
+    def __init__(self, cfg: ModelCfg, device=None, generator=None,
+                 train: bool = False):
         super().__init__()
         _check_supported(cfg)
         dev = resolve_device(device)
@@ -117,7 +136,10 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(layers._normal(
                 generator, (D, cfg.vocab), D ** -0.5, dtype, dev))
-        self.requires_grad_(False)
+        if cfg.remat not in _REMAT:
+            raise ValueError(f"{cfg.name}: remat {cfg.remat!r} is not one of "
+                             f"{sorted(_REMAT)}")
+        self.requires_grad_(train)
 
     @property
     def device(self) -> torch.device:
@@ -135,6 +157,69 @@ class DecoderLM(nn.Module):
 
 def param_count(model: DecoderLM) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def _ref_path(name: str):
+    """``groups.{g}.pos{j}.{sub}.{leaf}`` -> (``("groups", "pos{j}",
+    sub, leaf)``, g); a top-level name -> (``(name,)``, None)."""
+    parts = name.split(".")
+    if parts[0] == "groups":
+        return ("groups", *parts[2:]), int(parts[1])
+    return (name,), None
+
+
+def reference_tree(named) -> dict:
+    """``{parameter name: tensor}`` (the model's names, e.g. its
+    ``named_parameters()`` or an optimizer moment keyed the same way) ->
+    the reference's nested tree, group-position leaves stacked over a
+    leading ``(n_groups,)`` axis (``torch.stack``: a copy)."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, t in named.items():
+        path, g = _ref_path(name)
+        if g is None:
+            tree[name] = t
+        else:
+            stacks.setdefault(path, {})[g] = t
+    for path, by_group in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack([by_group[g]
+                                      for g in range(len(by_group))])
+    return tree
+
+
+def from_reference_tree(tree, names) -> dict:
+    """The inverse of :func:`reference_tree`: ``{name: leaf}`` for each of
+    ``names``, a group-position leaf sliced at its group (a view)."""
+    out = {}
+    for name in names:
+        path, g = _ref_path(name)
+        node = tree
+        for key in path:
+            node = node[key]
+        out[name] = node if g is None else node[g]
+    return out
+
+
+def reference_params(model: DecoderLM) -> dict:
+    """The model's weights as the reference's ``init_params`` tree of
+    numpy arrays (the inverse of :func:`load_reference_params`); bf16
+    weights come out as f32 (exact), since numpy has no bf16. Every array
+    is a copy: training the model in place leaves the tree as it was."""
+    tree = reference_tree({n: p.detach()
+                           for n, p in model.named_parameters()})
+    return _to_numpy(tree)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    t = tree.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return np.array(t.cpu().numpy())
 
 
 # ------------------------------------------------------------- weights
@@ -191,20 +276,76 @@ def logits_fn(model: DecoderLM, hidden):
     return torch.einsum("bsd,dv->bsv", hidden, w)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's ``"dots"``: save the products without
+    batch dimensions (``mm``, ``addmm``, and ``bmm`` over a batch of one,
+    which is what the projections' einsums lower to); recompute the rest."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt_lib.CheckpointPolicy.MUST_SAVE
+    return ckpt_lib.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT = {
+    "none": None,
+    "full": ckpt_lib.noop_context_fn,
+    "dots": functools.partial(ckpt_lib.create_selective_checkpoint_contexts,
+                              _dots_policy),
+}
+
+
+def _group_fn(group, x, positions):
+    """One group of len(pattern) layers, training mode (no caches)."""
+    for j in range(len(group)):
+        x = group[f"pos{j}"](x, positions)
+    return x
+
+
 def forward_hidden(model: DecoderLM, tokens):
-    """tokens: (B, S) int. Returns final hidden states (B, S, D)."""
+    """tokens: (B, S) int. Returns final hidden states (B, S, D). With
+    grad mode on each layer group runs under ``cfg.remat``."""
     cfg = model.cfg
     x = F.embedding(tokens, model.embed)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for _, _, layer in model.iter_layers():
-        x = layer(x, positions)
+    context_fn = _REMAT[cfg.remat] if torch.is_grad_enabled() else None
+    for group in model.groups:
+        if context_fn is None:
+            x = _group_fn(group, x, positions)
+        else:
+            x = ckpt_lib.checkpoint(_group_fn, group, x, positions,
+                                    use_reentrant=False,
+                                    context_fn=context_fn)
     return layers.rms_norm(x, model.final_ln, cfg.norm_eps)
 
 
 def forward(model: DecoderLM, tokens):
     """Full-vocab logits (B, S, V), teacher-forced."""
     return logits_fn(model, forward_hidden(model, tokens))
+
+
+def loss_fn(model: DecoderLM, tokens, labels):
+    """Mean cross-entropy over label positions, the logits taken
+    ``cfg.loss_chunk`` positions at a time in f32, so (B, S, V) never
+    exists at once. labels: (B, S) int, -1 = ignore. Returns a 0-d f32
+    tensor (no host read)."""
+    cfg = model.cfg
+    hidden = forward_hidden(model, tokens)
+    S = hidden.shape[1]
+    w = model.embed.T if cfg.tie_embeddings else model.unembed
+    C = min(cfg.loss_chunk, S)
+    tot = hidden.new_zeros((), dtype=torch.float32)
+    cnt = torch.zeros((), dtype=torch.long, device=hidden.device)
+    for a in range(0, S, C):
+        lbl = labels[:, a:a + C].long()
+        logits = torch.einsum("bsd,dv->bsv", hidden[:, a:a + C], w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, lbl.clamp_min(0)[..., None])[..., 0]
+        valid = lbl >= 0
+        tot = tot + torch.where(valid, lse - tgt, 0.0).sum()
+        cnt = cnt + valid.sum()
+    return tot / cnt.clamp_min(1)
 
 
 # -------------------------------------------------------------- caches

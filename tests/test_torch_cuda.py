@@ -4,8 +4,11 @@ softmax sums run in another order, at 2e-5 in f32 and, in bf16, at
 1e-2 relative (about one bf16 ulp) and 1e-4 absolute), the engine's
 ``auto`` routes through the kernels, P-Orth, kd, Zd and spac-z trees
 built and updated on the card equal to the same trees on the CPU, a
-sync-free ``server.insert``, and a smoke LM on the card equal to the
-same weights on the CPU.
+sync-free ``server.insert``, a smoke LM on the card equal to the same
+weights on the CPU, and the attention backward kernels against their
+plain version (each gradient within one bf16 ulp, or 1e-5 in f32, plus
+1e-5 of its largest) with a smoke model's training gradients on the card
+equal to the CPU's.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false (the decision is made in a
@@ -24,8 +27,11 @@ import torch
 from repro_torch import configs
 from repro_torch.core import baselines, make_index, porth, spac
 from repro_torch.kernels.bbox import kernel as bk
+from repro_torch.kernels.flash_attn import backward as fab
 from repro_torch.kernels.flash_attn import kernel as fak
-from repro_torch.kernels.flash_attn.ref import attention_plain
+from repro_torch.kernels.flash_attn.ref import (attention_bwd_plain,
+                                                attention_lse_plain,
+                                                attention_plain)
 from repro_torch.kernels.frontier import kernel as fk
 from repro_torch.kernels.frontier import prep
 from repro_torch.kernels.knn import kernel as kk
@@ -798,6 +804,146 @@ def test_flash_attn_launch_refuses_a_variant_that_does_not_fit(cuda):
         fak._launch("decode", q, k, v)
     with pytest.raises(ValueError, match="unknown variant"):
         fak._launch("wgmma", q, k, v)
+
+
+# backward kernels against their plain version, each of dq, dk, dv:
+# |got - want| <= rtol |want| + atol_rel (the largest |want| of the three)
+# (one bf16 ulp in bf16; f32 sums in another order)
+BWD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
+
+
+def _bwd_close(got, want, dtype):
+    torch.cuda.synchronize()
+    rtol, arel = BWD_TOL[dtype]
+    top = max(float(w.float().abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        g, w = g.float(), w.float()
+        bar = rtol * w.abs() + arel * top
+        assert bool(((g - w).abs() <= bar).all()), \
+            float(((g - w).abs() / bar).max())
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,d,causal,window", [
+    (2, 4, 4, 100, 64, True, None),      # MHA, ragged tail block
+    (1, 8, 2, 64, 128, True, None),      # GQA, the widest head
+    (2, 4, 2, 150, 80, True, 40),        # sliding window, d = 80
+    (1, 2, 2, 70, 64, False, None),      # non-causal
+    (1, 4, 1, 33, 32, False, 8),         # MQA, non-causal window
+    (1, 2, 2, 1, 16, True, None),        # one row
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_bwd_matches_plain(cuda, B, Hq, Hkv, S, d, causal,
+                                      window, dtype):
+    """The training form: the forward's lse against the plain one, and
+    the three backward kernels against ``attention_bwd_plain``."""
+    q, k, v = _attn_inputs(cuda, B, Hq, Hkv, S, S, d, dtype, seed=S + d)
+    do = torch.randn(q.shape, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window)
+    o, lse = fak.flash_attention_lse(q, k, v, **kw)
+    want_o, want_lse = attention_lse_plain(q, k, v, **kw)
+    _attn_close(o, want_o, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    want = attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    variant = "tc" if dtype == torch.bfloat16 else "simt"
+    assert fab.variant_for(q, k, v, o, do) == variant
+    before = (fab.launch_count(), fab.launch_count(variant))
+    got = fab.attention_bwd(q, k, v, o, lse, do, **kw)
+    assert (fab.launch_count(), fab.launch_count(variant)) == \
+        (before[0] + 3, before[1] + 1)
+    _bwd_close(got, want, dtype)
+    if variant == "tc":
+        _bwd_close(fab.attention_bwd(q, k, v, o, lse, do, variant="simt",
+                                     **kw), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_lse_leaves_outputs_unchanged(cuda, dtype):
+    """Writing the lse changes nothing else: tc (bf16) and simt give the
+    serving call's output bit for bit."""
+    q, k, v = _attn_inputs(cuda, 2, 8, 4, 200, 200, 64, dtype, seed=9)
+    for window in (None, 50):
+        want = fak.flash_attention(q, k, v, causal=True, window=window)
+        got, _ = fak.flash_attention_lse(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_flash_attn_bwd_bit_reproducible(cuda):
+    q, k, v = _attn_inputs(cuda, 2, 8, 2, 300, 300, 64, torch.bfloat16,
+                           seed=4)
+    do = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    o, lse = fak.flash_attention_lse(q, k, v, causal=True)
+    a = fab.attention_bwd(q, k, v, o, lse, do, causal=True)
+    b = fab.attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attn_bwd_tc_strided_and_unaligned(cuda):
+    """The models' (B, S, H, d) views go to tc as they are; a view whose
+    rows cp.async cannot load goes to simt, and both agree with the plain
+    version."""
+    B, S, H, d = 2, 96, 4, 64
+    base = torch.randn((B, S, H, d + 8), device=cuda).to(torch.bfloat16)
+    q = base[..., :d].transpose(1, 2)                 # row stride d + 8
+    odd = torch.randn((B, S, H, d + 1), device=cuda).to(torch.bfloat16)
+    k = odd[..., 1:].transpose(1, 2)                  # base off 16 bytes
+    v = torch.randn((B, S, H, d), device=cuda).to(torch.bfloat16)
+    v = v.transpose(1, 2)
+    do = torch.randn((B, S, H, d), device=cuda).to(torch.bfloat16)
+    do = do.transpose(1, 2)
+    for kk in (v, k):
+        o, lse = fak.flash_attention_lse(q, kk, v, causal=True)
+        want = attention_bwd_plain(q, kk, v, o, lse, do, causal=True)
+        assert fab.variant_for(q, kk, v, o, do) == \
+            ("tc" if kk is v else "simt")
+        _bwd_close(fab.attention_bwd(q, kk, v, o, lse, do, causal=True),
+                   want, torch.bfloat16)
+
+
+def test_flash_attn_bwd_wrapper_raises(cuda):
+    q, k, v = _attn_inputs(cuda, 1, 2, 2, 8, 8, 24, torch.float32)
+    with pytest.raises(ValueError, match="training form"):
+        fab.flash_attention_train(q, k, v)
+    q, k, v = _attn_inputs(cuda, 1, 2, 2, 8, 16, 32, torch.float32)
+    with pytest.raises(ValueError, match="training form"):
+        fab.flash_attention_train(q, k, v)
+    q, k, v = _attn_inputs(cuda, 1, 2, 2, 8, 8, 32, torch.float16)
+    with pytest.raises(TypeError):
+        fab.flash_attention_train(q, k, v)
+    q, k, v = _attn_inputs(cuda, 1, 2, 2, 8, 8, 32, torch.float32)
+    o, lse = fak.flash_attention_lse(q, k, v)
+    with pytest.raises(ValueError, match="variant"):
+        fab.attention_bwd(q, k, v, o, lse, q, variant="tc")
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "h2o-danube-1.8b"])
+def test_smoke_training_on_card_equals_cpu(cuda, arch):
+    """The same smoke weights and batch, f32, on the card (simt forward,
+    backward kernels, remat "dots") and on the CPU (plain versions): the
+    loss to 1e-5 and each gradient leaf to 1e-4 of its largest."""
+    cfg = configs.smoke(arch).with_(act_dtype="float32")
+    cpu = transformer.DecoderLM(cfg, device="cpu", train=True,
+                                generator=torch.Generator().manual_seed(3))
+    gpu = transformer.DecoderLM(cfg, train=True, generator=torch.Generator(
+        device=cuda).manual_seed(4))
+    with torch.no_grad():
+        for a, b in zip(gpu.parameters(), cpu.parameters()):
+            a.copy_(b)
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 48)))
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 48)))
+    before = fab.launch_count()
+    loss_g = transformer.loss_fn(gpu, toks.to(cuda), labels.to(cuda))
+    grads_g = torch.autograd.grad(loss_g, list(gpu.parameters()))
+    assert fab.launch_count() == before + 3 * cfg.n_layers
+    loss_c = transformer.loss_fn(cpu, toks, labels)
+    grads_c = torch.autograd.grad(loss_c, list(cpu.parameters()))
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for a, b in zip(grads_g, grads_c):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-4 * float(b.abs().max())
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "h2o-danube-1.8b"])

@@ -1,0 +1,187 @@
+"""The attention gradient on the CPU: the backward kernel's plain version
+(``ref.attention_bwd_plain``, from the forward's output and row
+log-sum-exp) against ``torch.autograd.grad`` of ``attention_plain`` and
+against ``jax.vjp`` of the reference models' ``_chunk_attention`` (what
+XLA differentiates in the reference), at f32 on the same numpy inputs,
+within 1e-5 of the largest gradient magnitude; the training form's
+autograd function (what the models take with grad on) against the same;
+and the wrapper's refusals of what the kernel does not take."""
+
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import layers as jlayers
+from repro_torch.kernels.flash_attn import backward as fab
+from repro_torch.kernels.flash_attn import kernel as fak
+from repro_torch.kernels.flash_attn.ref import (attention_bwd_plain,
+                                                attention_lse_plain,
+                                                attention_plain)
+from repro_torch.models import layers
+
+torch.set_num_threads(1)
+
+# f32 sums taken in another order: 1e-5 of the largest gradient
+REL = 1e-5
+
+
+def _inputs(seed, B, Hq, Hkv, S, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s, dtype=np.float32)
+            for s in ((B, Hq, S, d), (B, Hkv, S, d), (B, Hkv, S, d),
+                      (B, Hq, S, d))]
+
+
+def _close(got, want):
+    """Each of (dq, dk, dv) within REL of the largest magnitude of the
+    three (dq and dk are 0 where a row sees one slot, dv never is)."""
+    want = [np.asarray(w, np.float32) for w in want]
+    bar = REL * max(float(np.abs(w).max()) for w in want)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(np.asarray(g, np.float32), w, rtol=0,
+                                   atol=bar)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_vjp(causal, window, q_offset):
+    def f(q, k, v, do):
+        out, pull = jax.vjp(functools.partial(
+            jlayers._chunk_attention, causal=causal, window=window,
+            q_offset=q_offset), q, k, v)
+        return pull(do)
+    return jax.jit(f)
+
+
+def _port_grads(q, k, v, do, causal, window, q_offset=None):
+    o, lse = attention_lse_plain(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    return attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                               window=window, q_offset=q_offset)
+
+
+GRID = dict(Hkv=(4, 2), S=(1, 17, 64, 130), d=(32, 64, 80),
+            causal=(True, False), window=(None, 16))
+# (Hkv, causal, window) for each (S, d) of the reference comparison, so
+# that every value of every axis meets the reference (one XLA compile a
+# case keeps the full grid to the autograd comparison)
+MASKS = [(h, c, w) for h in GRID["Hkv"] for c in GRID["causal"]
+         for w in GRID["window"]]
+REF_CASES = [(S, d, *MASKS[(i * 3) % len(MASKS)]) for i, (S, d) in
+             enumerate((S, d) for S in GRID["S"] for d in GRID["d"])]
+
+
+@pytest.mark.parametrize("window", GRID["window"])
+@pytest.mark.parametrize("causal", GRID["causal"])
+@pytest.mark.parametrize("d", GRID["d"])
+@pytest.mark.parametrize("S", GRID["S"])
+@pytest.mark.parametrize("Hkv", GRID["Hkv"])
+def test_bwd_plain_matches_autograd(Hkv, S, d, causal, window):
+    arrs = _inputs(S * d + Hkv, 2, 4, Hkv, S, d)
+    q, k, v, do = map(torch.from_numpy, arrs)
+    got = _port_grads(q, k, v, do, causal, window)
+    assert all(g.dtype == torch.float32 for g in got)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attention_plain(*leaves, causal=causal, window=window)
+    _close(got, torch.autograd.grad(out, leaves, do))
+
+
+@pytest.mark.parametrize("S,d,Hkv,causal,window", REF_CASES)
+def test_bwd_plain_matches_reference_vjp(S, d, Hkv, causal, window):
+    arrs = _inputs(S * d + Hkv, 2, 4, Hkv, S, d)
+    got = _port_grads(*map(torch.from_numpy, arrs), causal, window)
+    _close(got, _jax_vjp(causal, window, 0)(*map(jnp.asarray, arrs)))
+
+
+def test_reference_cases_cover_the_grid():
+    for i, axis in enumerate(("S", "d", "Hkv", "causal", "window")):
+        assert {c[i] for c in REF_CASES} == set(GRID[axis]), axis
+
+
+def test_fully_masked_rows_have_zero_gradients():
+    """Queries at positions -3..S-4 (q_offset = -3): the first three see
+    no kv slot under the causal mask; their output is 0, their lse +inf
+    and every gradient they feed is 0, as ``jax.vjp`` gives it."""
+    B, Hq, Hkv, S, d = 2, 4, 2, 40, 32
+    arrs = _inputs(7, B, Hq, Hkv, S, d)
+    q, k, v, do = map(torch.from_numpy, arrs)
+    o, lse = attention_lse_plain(q, k, v, causal=True, q_offset=-3)
+    assert bool(torch.isinf(lse[:, :, :3]).all())
+    assert not bool(o[:, :, :3].any())
+    got = _port_grads(q, k, v, do, True, None, q_offset=-3)
+    want = _jax_vjp(True, None, -3)(*map(jnp.asarray, arrs))
+    _close(got, want)
+    assert not bool(got[0][:, :, :3].any())
+
+
+@pytest.mark.parametrize("S,d,Hkv,causal,window", [
+    (50, 64, 2, True, 16), (33, 80, 4, False, None), (64, 32, 1, True, None)])
+def test_training_form_autograd_matches_reference(S, d, Hkv, causal, window):
+    """``flash_attention_train`` (the route the models take with grad on)
+    and ``layers._chunk_attention`` under grad, on the CPU, against
+    ``jax.vjp`` of the reference's ``_chunk_attention``."""
+    arrs = _inputs(S + d, 2, 4, Hkv, S, d)
+    want = _jax_vjp(causal, window, 0)(*map(jnp.asarray, arrs))
+    for run in (functools.partial(fab.flash_attention_train, causal=causal,
+                                  window=window),
+                functools.partial(layers._chunk_attention, causal=causal,
+                                  window=window, q_offset=0)):
+        leaves = [torch.from_numpy(a).requires_grad_() for a in arrs[:3]]
+        out = run(*leaves)
+        _close(torch.autograd.grad(out, leaves, torch.from_numpy(arrs[3])),
+               want)
+
+
+def test_forward_lse_matches_plain_forward():
+    arrs = _inputs(3, 2, 4, 2, 70, 48)
+    q, k, v, _ = map(torch.from_numpy, arrs)
+    out, lse = fak.flash_attention_lse(q, k, v, causal=True, window=20)
+    assert torch.equal(out, attention_plain(q, k, v, causal=True, window=20))
+    s = torch.einsum("bhqd,bhkd->bhqk", q * 48 ** -0.5,
+                     k.repeat_interleave(2, dim=1))
+    pos = torch.arange(70)
+    vis = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - 20)
+    want = torch.logsumexp(torch.where(vis, s, -torch.inf), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-6)
+
+
+def test_training_form_refuses_other_calls():
+    arrs = _inputs(1, 1, 2, 2, 16, 32)
+    q, k, v, do = map(torch.from_numpy, arrs)
+    with pytest.raises(ValueError, match="training form"):
+        fab.flash_attention_train(q[:, :, :8], k, v)       # Sq != Skv
+    with pytest.raises(ValueError, match="training form"):
+        fab.flash_attention_train(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(ValueError, match="lse"):
+        fab.attention_bwd(q, k, v, q, torch.zeros(1, 2, 8), do)
+    with pytest.raises(ValueError, match="training form"):
+        layers._chunk_attention(q.requires_grad_(), k, v, causal=True,
+                                window=None, q_offset=0, kv_len=8)
+    # serving (no grad) keeps the plain forward and its counts
+    with torch.no_grad():
+        assert torch.equal(layers._chunk_attention(
+            q, k, v, causal=True, window=None, q_offset=0),
+            attention_plain(q, k, v, causal=True))
+    assert fab.launch_count() == 0
+
+
+def test_backward_variant_rule():
+    """``variant_for`` (decided on the CPU too, from dtype, head width
+    and row alignment alone): tc for bf16 views the tensor cores' loads
+    take, simt for f32, other widths and unaligned rows."""
+    B, S, H, d = 2, 16, 4, 64
+    bf = torch.zeros((B, S, H, d), dtype=torch.bfloat16).transpose(1, 2)
+    assert fab.variant_for(bf, bf, bf, bf, bf) == "tc"
+    f32 = bf.float()
+    assert fab.variant_for(f32, f32, f32, f32, f32) == "simt"
+    odd = torch.zeros((B, S, H, d + 1), dtype=torch.bfloat16)[..., 1:]
+    odd = odd.transpose(1, 2)
+    assert fab.variant_for(bf, odd, bf, bf, bf) == "simt"
+    narrow = torch.zeros((B, H, S, 40), dtype=torch.bfloat16)
+    assert fab.variant_for(*[narrow] * 5) == "simt"

@@ -1,0 +1,67 @@
+"""The port's launchers and LM examples run end to end on the CPU when
+asked (``--device cpu``, smoke configs) and exit 0: the training
+launcher (its own loss-decrease check at 20 steps, checkpoints after
+steps 0 and 10), the serving launcher's index and LM services, and
+``examples/port/{train_lm,serve_lm}.py`` (each asserts its own answers:
+a second phase resumed from the first's newest checkpoint, holding 11
+steps; greedy decode against the teacher-forced forward). The example's
+first phase runs 14 steps, so the loss check (>= 20 steps) is the
+launcher case's."""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.launch import serve as serve_launcher
+from repro_torch.launch import train as train_launcher
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+CASES = {
+    "train": ["-m", "repro_torch.launch.train", "--smoke", "--device", "cpu",
+              "--steps", "20", "--batch", "8", "--seq", "64",
+              "--ckpt-dir", "{tmp}/ck"],
+    "serve_index": ["-m", "repro_torch.launch.serve", "--device", "cpu",
+                    "--n", "3000", "--batches", "2", "--queries", "16"],
+    "serve_lm": ["-m", "repro_torch.launch.serve", "--service", "lm",
+                 "--device", "cpu", "--batch", "2", "--prompt", "8",
+                 "--new", "4"],
+    "example_train_lm": ["examples/port/train_lm.py", "--device", "cpu",
+                         "--steps", "24", "--batch", "8", "--seq", "32"],
+    "example_serve_lm": ["examples/port/serve_lm.py", "--device", "cpu"],
+}
+EXPECT = {"train": "qwen1.5-0.5b: 20 steps",
+          "serve_index": "index service [uniform/spac-h]",
+          "serve_lm": "lm serving [qwen1.5-0.5b]",
+          "example_train_lm": "resumed from step 11",
+          "example_serve_lm": "agreement: 100.0%"}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_runs_on_the_cpu(name, tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), TMPDIR=str(tmp_path),
+               OMP_NUM_THREADS="1")
+    args = [a.format(tmp=tmp_path) for a in CASES[name]]
+    out = subprocess.run([sys.executable, *args], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert EXPECT[name] in out.stdout
+    if name == "train":
+        assert sorted(os.listdir(tmp_path / "ck")) == ["step_00000001",
+                                                      "step_00000011"]
+    if name == "example_train_lm":
+        assert "OK:" in out.stdout
+
+
+@pytest.mark.parametrize("module", [train_launcher, serve_launcher])
+def test_entry_points_need_a_card_unless_cpu_is_asked(module, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        module.main(["--smoke", "--steps", "1"] if module is train_launcher
+                     else ["--service", "lm"])

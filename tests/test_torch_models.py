@@ -43,8 +43,7 @@ def _np(tree):
 
 # the reference's XLA knobs, which the port's ModelCfg does not carry
 XLA_FIELDS = {"attn_chunk_q", "attn_chunk_k", "attn_causal_prune",
-              "moe_group", "moe_shard_map", "loss_chunk", "remat",
-              "scan_layers"}
+              "moe_group", "moe_shard_map", "scan_layers"}
 
 
 def _same_cfg(cfg, jcfg):
