@@ -53,6 +53,38 @@ Phases, each printed as one JSON line (``"phase": ...``):
              forward's o and lse against ``attention_lse_plain`` (within
              ``ATTN_TOL`` and ``LSE_TOL``) and the kernel chain's
              gradients against the plain chain's (within ``CHAIN_TOL``).
+3c. mixers -- the MoE, Mamba and RWKV6 mixers (bf16, seeded weights):
+             (a) phi3.5-moe at full width (d_model 4096, 32 heads over 8
+             kv heads of 128, 16 experts top-2 of d_ff 6,400, vocab
+             32,064) and 24 of its 32 layers (32 need ~84 GB of bf16
+             weights), 1 warm-up and 2 measured generates of 8 x 2,048
+             prompt tokens and 64 greedy new tokens under sync debug
+             mode "error": every prefill launches flash attention's tc
+             24 times, every decode step its decode variant 24 times, no
+             other kernel; logits finite; then 2 layers of the full width
+             in f32 with capacity E / K (no token can drop): greedy
+             decode agrees with the teacher-forced argmax at >= 99% of
+             32 new tokens after 2 x 256. (b) rwkv6-3b at full width and
+             depth (32 layers, d_model 2560, 40 heads of 64), the lm
+             phase's shape: wkv6 (``csrc/wkv6.cu``) 32 times a forward and
+             nothing else; the f32 rerun of the same weights at >= 99%.
+             (c) jamba-1.5-large's Mamba layer at full width (d_inner
+             16,384, d_state 16), alone: a prefill of 8 x 2,048 through
+             ``mamba_block`` and 32 decode steps through its cache, one
+             selective-scan launch (``csrc/selective_scan.cu``) a call;
+             an f32 copy's step-by-step decode against its teacher-forced
+             pass (1e-4 of the scale); then jamba's whole pattern at the
+             smoke width (f32): decode against the card's forward and
+             that forward against the CPU's, each within 1e-4 of the
+             scale. Prefill ms, decode ms a token p50/p99, tokens/s, peak
+             bytes, launches by kernel and variant, one profiled prefill
+             and decode step. The rows: wkv6 on layer 0 of (b)'s measured
+             prefill and selective_scan on (c)'s, each in bf16 and on f32
+             copies against its plain version (within ``REC_TOL`` of the
+             largest value), by events and the profiler, with the bound
+             and "library: none"; flash attention's tc and decode on
+             phi's layer-0 inputs (d=128, GQA) beside
+             ``scaled_dot_product_attention``.
 4. main   -- the serving loop at a deployment's size: ``SpatialServer``
              over a SPaC-tree (``spac-h``, phi=32, version window 4) of
              10^7 uniform 2D int32 points in [0, 2^20), then 1 warm-up
@@ -201,6 +233,7 @@ with code 2 before printing anything to standard output.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -238,11 +271,16 @@ from repro_torch.kernels.frontier import prep, tuning  # noqa: E402
 from repro_torch.kernels.knn import kernel as kk  # noqa: E402
 from repro_torch.kernels.knn import ref as kref  # noqa: E402
 from repro_torch.kernels.morton import kernel as mk  # noqa: E402
+from repro_torch.kernels.selective_scan import kernel as ssk  # noqa: E402
+from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
+    selective_scan_plain)
 from repro_torch.kernels.sieve import kernel as sk  # noqa: E402
 from repro_torch.kernels.sieve import ops as sieve_ops  # noqa: E402
 from repro_torch.kernels.sieve import ref as sieve_ref  # noqa: E402
+from repro_torch.kernels.wkv import kernel as wk  # noqa: E402
+from repro_torch.kernels.wkv.ref import wkv6_plain  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import ssm, transformer  # noqa: E402
 from repro_torch.train import step as train_lib  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serving import (LatencyRecorder, MicroBatcher,  # noqa: E402
@@ -365,7 +403,8 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-KERNELS = {**driver.KERNELS, "flash_attn": fak, "flash_attn_bwd": fab}
+KERNELS = {**driver.KERNELS, "flash_attn": fak, "flash_attn_bwd": fab,
+           "wkv6": wk, "selective_scan": ssk}
 
 
 def reset_counts() -> None:
@@ -1936,18 +1975,14 @@ def kernel_label(mangled: str) -> str:
     return f"{m.group(1)}<{args.rstrip(',')}>"
 
 
-def flash_attn_build(ptxas: str, lib: str = "flash_attn",
-                     tc_kernels=("flash_tc_",)) -> dict:
-    """Registers and spill bytes of every kernel of the attention library
-    ``lib`` from ``ptxas -v``, and the ``HMMA`` (tensor-core)
-    instructions of each in the library's SASS (``cuobjdump -sass``);
-    every tc instantiation (one a tc head width of each kernel whose
-    name starts with one of ``tc_kernels``) must hold some."""
+def ptxas_usage(ptxas: str, label=str) -> dict:
+    """Registers and spill bytes of each kernel in a ``ptxas -v`` report,
+    keyed by ``label`` of its mangled name."""
     kernels, name = {}, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = kernel_label(m.group(1))
+            name = label(m.group(1))
             kernels[name] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1958,6 +1993,17 @@ def flash_attn_build(ptxas: str, lib: str = "flash_attn",
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             kernels[name]["registers"] = int(m.group(1))
+    return kernels
+
+
+def flash_attn_build(ptxas: str, lib: str = "flash_attn",
+                     tc_kernels=("flash_tc_",)) -> dict:
+    """Registers and spill bytes of every kernel of the attention library
+    ``lib`` from ``ptxas -v``, and the ``HMMA`` (tensor-core)
+    instructions of each in the library's SASS (``cuobjdump -sass``);
+    every tc instantiation (one a tc head width of each kernel whose
+    name starts with one of ``tc_kernels``) must hold some."""
+    kernels = ptxas_usage(ptxas, kernel_label)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(build.lib_path(lib))],
                           capture_output=True, text=True, timeout=300,
@@ -2796,6 +2842,578 @@ def train_phase(dev) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# the mixers: MoE, Mamba and RWKV6 serving, and the recurrence kernels
+# ---------------------------------------------------------------------------
+
+# phi3.5-moe at full width, 24 of its 32 layers (32 would need ~84 GB of
+# bf16 weights on the 80 GB card; 24 take ~63 GB and a ~1.7 GB kv cache)
+MIX_PHI = "phi3.5-moe-42b-a6.6b"
+MIX_PHI_LAYERS = 24
+MIX_PHI_BATCH, MIX_PHI_PROMPT, MIX_PHI_NEW = 8, 2048, 64
+# rwkv6-3b at full width and depth, the lm phase's shape
+MIX_RWKV = "rwkv6-3b"
+MIX_RWKV_BATCH, MIX_RWKV_PROMPT, MIX_RWKV_NEW = 8, 2048, 128
+MIX_WARMUP, MIX_REPS = 1, 2
+# the f32 agreement checks: B, P, new tokens; phi at 2 layers of its full
+# width, with capacity E / K so that no token can drop
+MIX_F32_BATCH, MIX_F32_PROMPT, MIX_F32_NEW = 2, 256, 32
+MIX_F32_PHI_LAYERS = 2
+# jamba-1.5-large's Mamba layer at full width, alone: a prefill of B x S
+# and decode steps through its cache; its f32 check (B, prompt, steps)
+MIX_JAMBA = "jamba-1.5-large-398b"
+MIX_MAMBA_BATCH, MIX_MAMBA_PROMPT, MIX_MAMBA_STEPS = 8, 2048, 32
+MIX_MAMBA_F32 = (2, 256, 32)
+# step-by-step decode against the teacher-forced pass: within this share
+# of the outputs' largest magnitude (tests/test_models.py's bar; f32
+# products of other shapes sum in another order)
+MIX_DECODE_REL = 1e-4
+# the recurrence kernels (wkv6, selective scan) against their plain
+# versions: the same f32 arithmetic a token (bf16 inputs rounded the same
+# way, the scan's db in bf16 in both), only the order of the f32 sums over
+# the head's keys or the states and the exponential's last bits differ, so
+# outputs and states lie within a few f32 ulps of the largest |value| of
+# their kind; 2e-5 of it is ~170 ulps. A wrong rounding of db (~2^-9 a
+# term) or a wrong index shows at 1e-3 and above
+REC_TOL = 2e-5
+
+
+class MixerProbe(LMProbe):
+    """:class:`LMProbe` that also keeps every kernel's launches of each
+    forward, and captures clones of a recurrence wrapper's inputs (its
+    state is updated in place after the call)."""
+
+    def __init__(self, capture_len: int):
+        super().__init__(capture_len)
+        self.counts = {"prefill": [], "decode": []}
+
+    def forward(self, orig, phase: str):
+        inner = super().forward(orig, phase)
+
+        def run(model, *args):
+            before = counts()
+            out = inner(model, *args)
+            self.counts[phase].append(delta(before))
+            return out
+        return run
+
+    def kernel(self, orig):
+        def run(*args, **kw):
+            if self._slot is not None:
+                self.captured[self._slot] = tuple(a.clone() for a in args)
+                self._slot = None
+            return orig(*args, **kw)
+        return run
+
+
+def mixer_serve(cfg, model, prompts, n_new: int, probe: MixerProbe,
+                patches) -> dict:
+    """``MIX_WARMUP`` + ``MIX_REPS`` greedy generates of ``prompts`` through
+    ``ServeEngine`` under sync debug mode "error", with ``probe`` around
+    each forward and ``patches`` ((obj, name, fn) triples) in place.
+    Returns the timings and the launches."""
+    P = prompts.shape[1]
+    engine = ServeEngine(cfg, model, P + n_new)
+    runs = MIX_WARMUP + MIX_REPS
+    outs, gen_s = [], []
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(transformer, "prefill", probe.forward(
+            transformer.prefill, "prefill")))
+        stack.enter_context(patched(transformer, "decode_step",
+                                    probe.forward(transformer.decode_step,
+                                                  "decode")))
+        for obj, name, fn in patches:
+            stack.enter_context(patched(obj, name, fn))
+        for r in range(runs):
+            probe.capture = r == runs - 1
+            sync()
+            t1 = time.perf_counter()
+            with sync_debug_error():
+                out = engine.generate(prompts, n_new)
+            sync()
+            if r >= MIX_WARMUP:
+                gen_s.append(time.perf_counter() - t1)
+                outs.append(out)
+    steps = n_new - 1
+    check(len(probe.counts["prefill"]) == runs
+          and len(probe.counts["decode"]) == runs * steps,
+          f"mixers: {cfg.name}: the engine did not run one prefill and "
+          f"n_new - 1 decode steps a generate")
+    prefill_ms = [a.elapsed_time(b) for a, b in
+                  probe.events["prefill"][MIX_WARMUP:]]
+    decode_ms = np.array([a.elapsed_time(b) for a, b in
+                          probe.events["decode"][MIX_WARMUP * steps:]])
+    last = outs[-1]
+    B = prompts.shape[0]
+    check(last.shape == (B, n_new)
+          and bool(((last >= 0) & (last < cfg.vocab)).all()),
+          f"mixers: {cfg.name}: generated tokens out of shape or vocabulary")
+    return {"batch": B, "prompt": P, "new": n_new, "warmup": MIX_WARMUP,
+            "reps": MIX_REPS, "prefill_ms": float(np.mean(prefill_ms)),
+            "prefill_ms_each": prefill_ms,
+            "decode_ms_per_token": {
+                "p50": float(np.percentile(decode_ms, 50)),
+                "p99": float(np.percentile(decode_ms, 99)),
+                "mean": float(decode_ms.mean()),
+                "count": int(decode_ms.size)},
+            "generate_s_each": gen_s,
+            "tokens_per_s": B * n_new / float(np.mean(gen_s)),
+            "launches": counts(), "launches_by_variant": variant_counts(),
+            "repeat_tokens_equal": all(bool(torch.equal(o, last))
+                                       for o in outs),
+            "generates_under_sync_debug_error": runs}
+
+
+def mixer_profiles(model, prompts, max_len: int, name: str) -> dict:
+    """One prefill and one decode step under the profiler (not counted);
+    every logit of a prefill and a decode step finite."""
+    with torch.inference_mode():
+        prof_prefill = device_ops(
+            lambda: transformer.prefill(model, prompts, max_len), top=16)
+        lg, cache = transformer.prefill(model, prompts, max_len)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        lg2, cache = transformer.decode_step(model, cache, tok)
+        check(bool(torch.isfinite(lg).all())
+              and bool(torch.isfinite(lg2).all()),
+              f"mixers: {name}: logits not finite")
+        tok = lg2[:, -1].argmax(-1, keepdim=True)
+        prof_decode = device_ops(
+            lambda: transformer.decode_step(model, cache, tok), top=16)
+    return {"profile_prefill": prof_prefill, "profile_decode": prof_decode}
+
+
+def f32_agreement(cfg32, model32, prompts, name: str) -> dict:
+    """Greedy decode of ``MIX_F32_NEW`` tokens against the argmax of the
+    teacher-forced forward of the prompt and those tokens: the share of
+    positions that agree must reach ``LM_AGREE``."""
+    reset_counts()
+    out = ServeEngine(cfg32, model32, prompts.shape[1] + MIX_F32_NEW
+                      ).generate(prompts, MIX_F32_NEW)
+    launches = counts()
+    variants = variant_counts()
+    with torch.inference_mode():
+        logits = transformer.forward(model32, torch.cat([prompts,
+                                                         out.long()], 1))
+    check(bool(torch.isfinite(logits).all()),
+          f"mixers: {name}: f32 logits not finite")
+    ref = logits[:, prompts.shape[1] - 1:-1].argmax(-1)
+    agree = float((ref == out).float().mean())
+    check(agree >= LM_AGREE, f"mixers: {name}: f32 greedy decode agrees with "
+          f"the teacher-forced forward at {agree:.4f} of positions")
+    return {"batch": prompts.shape[0], "prompt": prompts.shape[1],
+            "new": MIX_F32_NEW, "agreement": agree, "bar": LM_AGREE,
+            "launches": launches, "launches_by_variant": variants}
+
+
+def rec_compare(fn, plain, args) -> dict:
+    """A recurrence kernel's (output, state) against its plain version's
+    on ``args``: each within ``REC_TOL`` of the largest |value| of its
+    kind; the share of that bar used (<= 1 passes)."""
+    got, want = fn(*args), plain(*args)
+    sync()
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    tops = [float(w.abs().max()) for w in want]
+    share = max(e / (REC_TOL * max(t, 1e-30)) for e, t in zip(errs, tops))
+    return {"max_abs_err": max(errs), "max_abs_err_by_output": errs,
+            "max_abs_value_by_output": tops, "tolerance_share": share,
+            "all_close": share <= 1.0, "bar_rel": REC_TOL}
+
+
+def path_kernel_ms(profile: dict, names, calls: int) -> dict:
+    """Device ms a wrapper call from the profile of the path's own forward
+    (``device_ops``): the kernels whose names hold one of ``names``,
+    summed, over the ``calls`` wrapper calls the forward made. (Profiles
+    of lone ctypes launches late in this script have been seen to record
+    no device time; a forward's profile records them.)"""
+    hit = {k["name"]: k["ms"] for k in profile["kernels"]
+           if any(n in k["name"] for n in names)}
+    return {"ms": sum(hit.values()) / calls, "calls": calls,
+            "kernels_ms": hit}
+
+
+def recurrence_row(name: str, fn, plain, args, bytes_moved: float,
+                   ops: float, device: dict) -> dict:
+    """The kernel on ``args`` (the path's own inputs) and on f32 copies of
+    them against its plain version; its time by events and, in
+    ``device``, by the profiler (:func:`path_kernel_ms`); the plain
+    version's time and the bound (bytes over 3.35 TB/s, operations over
+    the fp32 rate)."""
+    cmp = rec_compare(fn, plain, args)
+    cmp32 = rec_compare(fn, plain, tuple(a.float() for a in args))
+    ms = time_ms(lambda: fn(*args), reps=5)
+    plain_ms = time_ms(lambda: plain(*args), reps=1)
+    b_ms, by, how = bound(bytes_moved, ops)
+    ok = cmp["all_close"] and cmp32["all_close"]
+    check(ok, f"{name}: kernel differs from its plain version beyond "
+          f"{REC_TOL} of the largest value (share of the bar, "
+          f"{args[0].dtype} / f32): {cmp['tolerance_share']:.3g} / "
+          f"{cmp32['tolerance_share']:.3g}")
+    return {**cmp, "all_close": ok, "f32_copy": cmp32, "ms": ms,
+            "device_ms": device["ms"], "device_in_path": device,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes it",
+            "timed": "ms: back-to-back calls by CUDA events; device_ms: "
+                     "a call's kernel time in the profile of the path's "
+                     "own prefill (torch.profiler)",
+            "bound_terms": how}
+
+
+def wkv6_row(captured: dict, launches: dict, device: dict) -> dict:
+    """wkv6 on layer 0 of rwkv6-3b's measured prefill (and of one decode
+    step), against ``wkv6_plain``."""
+    r, k, v, w, u, state = captured["prefill"]
+    B, S, H, hd = r.shape
+    bytes_moved = 3 * r.numel() * r.element_size() + 4 * (
+        w.numel() + u.numel() + 2 * state.numel() + r.numel())
+    # the function's least work: the bonus term factors as
+    # v_v sum_k r_k u_k k_k, so a (token, key, value) triple needs r s,
+    # the sum, k v, w s and the add; a (token, head) adds the bonus sum
+    # (r u, times k, the add) a key and v times it plus the add a value
+    ops = 5 * B * S * H * hd * hd + 5 * B * S * H * hd
+    row = recurrence_row("wkv6", wk.wkv6, wkv6_plain, captured["prefill"],
+                         bytes_moved, ops, device)
+    at_decode = rec_compare(wk.wkv6, wkv6_plain, captured["decode"])
+    check(at_decode["all_close"], f"wkv6: the decode step's call differs "
+          f"from its plain version ({at_decode['tolerance_share']:.3g} of "
+          f"the bar)")
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/models/rwkv.py:69 (no TPU kernel: the "
+                        "lax.scan of time_mix's step, rwkv.py:58-69)",
+            "launches": launches["mixers-rwkv"],
+            "launches_by_path": launches, **row,
+            "shape": {"B": B, "S": S, "H": H, "hd": hd,
+                      "dtype": str(r.dtype)},
+            "at_decode": at_decode}
+
+
+def selective_scan_row(captured: tuple, launches: dict,
+                       device: dict) -> dict:
+    """selective_scan on jamba's Mamba layer's prefill, against
+    ``selective_scan_plain``."""
+    dt, xc, A, Bm, Cm, D_skip, h0 = captured
+    B, S, di = dt.shape
+    ds = A.shape[1]
+    bytes_moved = (2 * dt.numel() + 2 * Bm.numel()) * dt.element_size() + \
+        4 * (A.numel() + D_skip.numel() + 2 * h0.numel() + dt.numel())
+    # a (token, channel, state): dt A, its exp, dt B, times x, da h, + db,
+    # h C, the sum; a (token, channel): x D, + it
+    ops = B * S * di * (8 * ds + 2)
+    row = recurrence_row("selective_scan", ssk.selective_scan,
+                         selective_scan_plain, captured, bytes_moved, ops,
+                         device)
+    return {"name": "selective_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/selective_scan.cu",
+            "replaces": "src/repro/models/ssm.py:21 (no TPU kernel: "
+                        "_selective_scan's associative scan and the C "
+                        "contraction of mamba_block, ssm.py:21-87)",
+            "launches": launches["mixers-jamba-layer"],
+            "launches_by_path": launches, **row,
+            "shape": {"B": B, "S": S, "d_inner": di, "d_state": ds,
+                      "dtype": str(dt.dtype)}}
+
+
+def phi_part(dev) -> tuple[dict, dict]:
+    """(a): phi3.5-moe at full width and ``MIX_PHI_LAYERS`` layers in bf16,
+    served; ``tc`` and ``decode`` on its layer-0 inputs; then the f32
+    agreement check at 2 layers of the full width."""
+    cfg = configs.ARCHS[MIX_PHI].with_(n_layers=MIX_PHI_LAYERS)
+    L = cfg.n_layers
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    free_before, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    model = transformer.DecoderLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 31))
+    sync()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 37)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        MIX_PHI_BATCH, MIX_PHI_PROMPT)), device=dev)
+    max_len = MIX_PHI_PROMPT + MIX_PHI_NEW
+    probe = MixerProbe(max_len - 2)
+    serve = mixer_serve(cfg, model, prompts, MIX_PHI_NEW, probe, [
+        (fak, "flash_attention", probe.attention(fak.flash_attention))])
+    peak = torch.cuda.max_memory_allocated()
+    only = {"prefill": {"tc": L, "decode": 0, "simt": 0},
+            "decode": {"tc": 0, "decode": L, "simt": 0}}
+    for phase, want in only.items():
+        got = [c for c in probe.variants[phase] if c != want]
+        check(not got, f"mixers: phi: a bf16 {phase} forward took "
+              f"flash-attention variants {got[:1]}, not {want}")
+    others = [c for ph in ("prefill", "decode") for c in probe.counts[ph]
+              if any(n for k, n in c.items() if k != "flash_attn")]
+    check(not others, f"mixers: phi: other kernels launched: {others[:1]}")
+    profiles = mixer_profiles(model, prompts, max_len, "phi")
+    params = transformer.param_count(model)
+    captured = probe.captured
+    del model, probe
+    free()
+    check(set(captured) == {"prefill", "decode"},
+          f"mixers: phi: captured attention inputs {sorted(captured)}")
+    q, k, v, kw = captured["prefill"]
+    at_prefill = attn_at(q, k, v, kw, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    q, k, v, kw = captured["decode"]
+    at_decode = attn_at(q, k, v, kw, lambda: F.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True))
+    at_prefill["device_in_path"] = path_kernel_ms(
+        profiles["profile_prefill"], ("flash_tc",), L)
+    at_decode["device_in_path"] = path_kernel_ms(
+        profiles["profile_decode"], ("flash_decode",), L)
+    cases = {"at_phi_prefill": at_prefill, "at_phi_decode": at_decode}
+    del q, k, v, captured
+    free()
+    check(all(c["all_close"] for c in cases.values())
+          and [c["variant"] for c in cases.values()] == ["tc", "decode"],
+          "flash_attn: at phi's layer 0 the kernel differs from its plain "
+          "version or took another variant: " + ", ".join(
+              f"{c['variant']} {c['tolerance_share']:.3g}"
+              for c in cases.values()))
+
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    cfg32 = cfg.with_(n_layers=MIX_F32_PHI_LAYERS, act_dtype="float32",
+                      moe=dataclasses.replace(cfg.moe,
+                                              capacity_factor=E / K))
+    m32 = transformer.DecoderLM(cfg32, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 41))
+    agree = f32_agreement(cfg32, m32, prompts[:MIX_F32_BATCH,
+                                              :MIX_F32_PROMPT], "phi")
+    check(agree["launches_by_variant"] == {
+        "tc": 0, "decode": (MIX_F32_NEW - 1) * MIX_F32_PHI_LAYERS,
+        "simt": MIX_F32_PHI_LAYERS}, f"mixers: phi: the f32 check took "
+        f"variants {agree['launches_by_variant']}")
+    del m32
+    free()
+    out = {"arch": MIX_PHI, "dtype": cfg.act_dtype, "layers": L,
+           "layers_published": configs.ARCHS[MIX_PHI].n_layers,
+           "params": params, "init_s": init_s,
+           "free_bytes_before": free_before, "total_bytes": total,
+           "peak_allocated_bytes": peak, **serve, **profiles,
+           "attention_launches_per_generate": {
+               "prefill_tc": L, "decode": (MIX_PHI_NEW - 1) * L},
+           "f32_check": {"layers": MIX_F32_PHI_LAYERS,
+                         "capacity_factor": E / K, **agree}}
+    return out, cases
+
+
+def rwkv_part(dev) -> tuple[dict, dict]:
+    """(b): rwkv6-3b at full width and depth in bf16, served; its f32
+    agreement check on the same weights; the wkv6 row on its layer-0
+    inputs."""
+    cfg = configs.ARCHS[MIX_RWKV]
+    L = cfg.n_layers
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.DecoderLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 43))
+    sync()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 47)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        MIX_RWKV_BATCH, MIX_RWKV_PROMPT)), device=dev)
+    max_len = MIX_RWKV_PROMPT + MIX_RWKV_NEW
+    probe = MixerProbe(max_len - 2)
+    serve = mixer_serve(cfg, model, prompts, MIX_RWKV_NEW, probe, [
+        (wk, "wkv6", probe.kernel(wk.wkv6))])
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: (L if name == "wkv6" else 0) for name in KERNELS}
+    bad = [c for ph in ("prefill", "decode") for c in probe.counts[ph]
+           if c != want]
+    check(not bad, f"mixers: rwkv: a forward launched {bad[:1]}, not wkv6 "
+          f"{L} times and nothing else")
+    profiles = mixer_profiles(model, prompts, max_len, "rwkv")
+    captured = probe.captured
+    check(set(captured) == {"prefill", "decode"},
+          f"mixers: rwkv: captured wkv6 inputs {sorted(captured)}")
+    cfg32 = cfg.with_(act_dtype="float32")
+    m32 = transformer.DecoderLM(cfg32, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 43))
+    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    params = transformer.param_count(model)
+    del model, probe
+    free()
+    agree = f32_agreement(cfg32, m32, prompts[:MIX_F32_BATCH,
+                                              :MIX_F32_PROMPT], "rwkv")
+    del m32
+    free()
+    launches = {"mixers-rwkv": serve["launches"]["wkv6"],
+                "mixers-rwkv-f32": agree["launches"]["wkv6"]}
+    row = wkv6_row(captured, launches, path_kernel_ms(
+        profiles["profile_prefill"], ("wkv6_kernel",), L))
+    del captured
+    free()
+    out = {"arch": MIX_RWKV, "dtype": cfg.act_dtype, "layers": L,
+           "params": params, "init_s": init_s,
+           "peak_allocated_bytes": peak, **serve, **profiles,
+           "wkv6_launches_per_forward": L, "f32_check": agree}
+    return out, row
+
+
+def mamba_part(dev) -> tuple[dict, dict]:
+    """(c): jamba-1.5-large's Mamba layer at full width, alone, in bf16: a
+    prefill of ``MIX_MAMBA_BATCH`` x ``MIX_MAMBA_PROMPT`` through
+    ``mamba_block`` with a cache, then ``MIX_MAMBA_STEPS`` decode steps,
+    one selective-scan launch a call. Then an f32 copy of the layer:
+    step-by-step decode against its teacher-forced pass. Then jamba's
+    whole pattern at the smoke width (:func:`jamba_smoke`)."""
+    cfg = configs.ARCHS[MIX_JAMBA]
+    D, di = cfg.d_model, cfg.ssm.expand * cfg.d_model
+    ds, Kc = cfg.ssm.d_state, cfg.ssm.d_conv
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(SEED + 53)
+    p = ssm.init_mamba(g, cfg, torch.bfloat16, dev)
+    B, S = MIX_MAMBA_BATCH, MIX_MAMBA_PROMPT
+    x = torch.randn((B, S, D), generator=g, device=dev).to(torch.bfloat16)
+    steps_x = torch.randn((MIX_MAMBA_STEPS, B, 1, D), generator=g,
+                          device=dev).to(torch.bfloat16)
+    cache = {"conv": torch.zeros((B, di, Kc - 1), dtype=torch.bfloat16,
+                                 device=dev),
+             "h": torch.zeros((B, di, ds), dtype=torch.float32, device=dev)}
+    probe = MixerProbe(0)
+    probe._slot = "prefill"
+    reset_counts()
+    with torch.inference_mode(), patched(ssk, "selective_scan", probe.kernel(
+            ssk.selective_scan)):
+        (y, _), prefill_ms = timed_once(lambda: ssm.mamba_block(x, p, cfg,
+                                                                cache))
+        check(ssk.launch_count() == 1, f"mixers: the Mamba prefill launched "
+              f"selective_scan {ssk.launch_count()} times")
+        finite = bool(torch.isfinite(y).all())
+        step_ms = []
+        for t in range(MIX_MAMBA_STEPS):
+            (yt, _), ms = timed_once(lambda: ssm.mamba_block(
+                steps_x[t], p, cfg, cache))
+            step_ms.append(ms)
+            finite = finite and bool(torch.isfinite(yt).all())
+    launches = counts()
+    check(launches["selective_scan"] == 1 + MIX_MAMBA_STEPS
+          and all(n == 0 for k, n in launches.items()
+                  if k != "selective_scan"),
+          f"mixers: the Mamba layer launched {launches}")
+    check(finite, "mixers: the Mamba layer's outputs are not finite")
+    peak = torch.cuda.max_memory_allocated()
+    for t in cache.values():
+        t.zero_()
+    with torch.inference_mode():
+        profile = device_ops(lambda: ssm.mamba_block(x, p, cfg, cache),
+                             top=16)
+    captured = probe.captured["prefill"]
+    del y, yt, cache, steps_x, probe
+    free()
+
+    # an f32 copy of the layer: decode against the teacher-forced pass
+    fb, fp, fs = MIX_MAMBA_F32
+    p32 = {k: v.float() for k, v in p.items()}
+    x32 = x[:fb, :fp + fs].float()
+    del p, x
+    with torch.inference_mode():
+        whole, _ = ssm.mamba_block(x32, p32, cfg)
+        c32 = {"conv": torch.zeros((fb, di, Kc - 1), device=dev),
+               "h": torch.zeros((fb, di, ds), device=dev)}
+        parts = [ssm.mamba_block(x32[:, :fp], p32, cfg, c32)[0]]
+        for t in range(fp, fp + fs):
+            parts.append(ssm.mamba_block(x32[:, t:t + 1], p32, cfg, c32)[0])
+        scale = float(whole.abs().max())
+        err = float((torch.cat(parts, 1) - whole).abs().max())
+    check(err <= MIX_DECODE_REL * scale, f"mixers: the Mamba layer's f32 "
+          f"decode differs from its teacher-forced pass by {err:.3g} "
+          f"(scale {scale:.3g})")
+    del p32, x32, whole, parts, c32
+    free()
+    row = selective_scan_row(captured, {
+        "mixers-jamba-layer": launches["selective_scan"]}, path_kernel_ms(
+            profile, ("selective_scan_kernel",), 1))
+    del captured
+    free()
+    smoke = jamba_smoke(dev)
+    row["launches_by_path"]["mixers-jamba-smoke"] = smoke["launches"][
+        "selective_scan"]
+    dm = np.array(step_ms)
+    return {"arch": MIX_JAMBA, "layer": "mamba", "d_model": D,
+            "d_inner": di, "d_state": ds, "d_conv": Kc,
+            "dt_rank": cfg.ssm.dt_rank or max(1, D // 16),
+            "batch": B, "prompt": S, "decode_steps": MIX_MAMBA_STEPS,
+            "prefill_ms": prefill_ms,
+            "decode_ms_per_step": {"p50": float(np.percentile(dm, 50)),
+                                   "p99": float(np.percentile(dm, 99))},
+            "peak_allocated_bytes": peak, "launches": launches,
+            "profile_prefill": profile,
+            "f32_decode_check": {"batch": fb, "prompt": fp, "steps": fs,
+                                 "max_abs_err": err, "scale": scale,
+                                 "bar_rel": MIX_DECODE_REL,
+                                 "share": err / (MIX_DECODE_REL * scale)},
+            "smoke_pattern": smoke}, row
+
+
+def jamba_smoke(dev) -> dict:
+    """jamba's whole pattern (``mmmammmm``: Mamba, attention and MoE) at
+    the smoke width, f32 and capacity 4.0, on the card: prefill plus
+    decode against the card's teacher-forced forward, and that forward
+    against the same weights on the CPU (plain versions), each within
+    ``MIX_DECODE_REL`` of the logits' scale."""
+    cfg = configs.smoke(MIX_JAMBA).with_(act_dtype="float32")
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+    cpu = transformer.DecoderLM(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(
+                                    SEED + 59))
+    gpu = transformer.DecoderLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 59))
+    gpu.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(SEED + 61).integers(0, cfg.vocab, (2, 40))
+    reset_counts()
+    with torch.inference_mode():
+        got = transformer.forward(gpu, torch.as_tensor(toks, device=dev))
+        launches = counts()
+        want = transformer.forward(cpu, torch.as_tensor(toks))
+        scale = float(want.abs().max())
+        cpu_err = float((got.cpu() - want).abs().max())
+        P = 34
+        lg, cache = transformer.prefill(gpu, torch.as_tensor(
+            toks[:, :P], device=dev), 40)
+        errs = [float((lg[:, 0] - got[:, P - 1]).abs().max())]
+        for i in range(P, 39):
+            lg, cache = transformer.decode_step(gpu, cache, torch.as_tensor(
+                toks[:, i:i + 1], device=dev))
+            errs.append(float((lg[:, 0] - got[:, i]).abs().max()))
+    G = cfg.n_groups
+    want_launches = {"selective_scan": G * cfg.pattern.count("m"),
+                     "flash_attn": G * cfg.pattern.count("a")}
+    check(all(launches[k] == n for k, n in want_launches.items())
+          and all(n == 0 for k, n in launches.items()
+                  if k not in want_launches),
+          f"mixers: jamba smoke forward launched {launches}")
+    check(cpu_err <= MIX_DECODE_REL * scale, f"mixers: jamba smoke on the "
+          f"card differs from the CPU by {cpu_err:.3g} (scale {scale:.3g})")
+    check(max(errs) <= MIX_DECODE_REL * scale, f"mixers: jamba smoke "
+          f"decode differs from the teacher-forced forward by {max(errs):.3g}"
+          f" (scale {scale:.3g})")
+    return {"pattern": cfg.pattern, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "launches": launches,
+            "cpu_max_abs_err": cpu_err, "decode_max_abs_err": max(errs),
+            "scale": scale, "bar_rel": MIX_DECODE_REL}
+
+
+def mixers_phase(dev) -> tuple[dict, list, dict]:
+    """The MoE, Mamba and RWKV6 mixers served on the card: (a) phi3.5-moe,
+    (b) rwkv6-3b, (c) jamba's Mamba layer and its smoke pattern. Returns
+    the phase's line, the wkv6 and selective-scan rows, and the
+    flash-attention cases at phi's layer 0."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    phi, attn_cases = phi_part(dev)
+    rwkv, wkv_row = rwkv_part(dev)
+    mamba, scan_row = mamba_part(dev)
+    out = {"phase": "mixers", "seconds": time.perf_counter() - t0,
+           "phi": phi, "rwkv": rwkv, "mamba": mamba}
+    return out, [wkv_row, scan_row], attn_cases
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2816,7 +3434,8 @@ def main() -> int:
     t0 = time.perf_counter()
     report = build.build()
     build_s = time.perf_counter() - t0
-    stale = [k for k in ("flash_attn", "flash_attn_bwd") if k not in report]
+    stale = [k for k in ("flash_attn", "flash_attn_bwd", "wkv6",
+                         "selective_scan") if k not in report]
     if stale:  # libraries left by an earlier run: their ptxas reports
         report.update(build.build(stale, force=True))
     flash_build = flash_attn_build(report["flash_attn"]["ptxas"])
@@ -2825,13 +3444,23 @@ def main() -> int:
         ("flash_bwd_dkdv_tc_", "flash_bwd_dq_tc_"))
     emit({"phase": "build", "seconds": build_s,
           "kernels": {k: v["seconds"] for k, v in report.items()},
-          "flash_attn": flash_build, "flash_attn_bwd": bwd_build})
+          "flash_attn": flash_build, "flash_attn_bwd": bwd_build,
+          **{k: ptxas_usage(report[k]["ptxas"])
+             for k in ("wkv6", "selective_scan")}})
 
     lm, flash_row = lm_phase(dev)
     emit(lm)
     train, bwd_row = train_phase(dev)
     emit(train)
     flash_row["launches_by_path"].update(train["flash_attn_launches"])
+    mixers, mixer_rows, phi_attn = mixers_phase(dev)
+    emit(mixers)
+    flash_row.update(phi_attn)
+    flash_row["launches_by_path"]["mixers-phi"] = \
+        mixers["phi"]["launches"]["flash_attn"]
+    flash_row["launches_by_variant"]["mixers-phi"] = \
+        mixers["phi"]["launches_by_variant"]
+    free()
 
     main_run = run_server("main", "spac-h", N_MAIN, BATCH, STEPS, WARMUP,
                           dev, coord_bits=20)
@@ -2910,7 +3539,7 @@ def main() -> int:
             row_bbox_kernel_row(porth_run, main_run, by_path("row_bbox")),
             sieve_kernel_row(porth_run, by_path("sieve"), dev),
             morton_kernel_row(zd_run["boot"], spacz_pts, by_path("morton")),
-            flash_row, bwd_row]
+            flash_row, bwd_row, *mixer_rows]
     del main_run, porth_run, kd_run, zd_run, flat_run, spacz_pts, spacz
     free()
     driver_launches = driver_phase(dev)

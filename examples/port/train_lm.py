@@ -8,8 +8,10 @@ Counterpart of ``examples/train_lm.py``:
     PYTHONPATH=src python examples/port/train_lm.py [--arch yi-9b] \\
         [--steps 40] [--device cpu]
 
-The port trains the dense attention-only archs (qwen1.5-0.5b, yi-9b,
-h2o-danube-1.8b, command-r-35b); the others raise NotImplementedError.
+The port trains every decoder arch; those with Mamba or RWKV6 layers
+(jamba, rwkv6) only with ``--device cpu`` (their recurrence kernels have
+no backward yet), and the encoder-decoder and frontend archs raise
+NotImplementedError.
 """
 
 import argparse

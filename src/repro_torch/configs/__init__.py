@@ -3,9 +3,9 @@
 The port's copy of ``repro/configs/__init__.py`` and its data modules.
 ``ARCHS[arch_id]`` is the exact published config; ``smoke(arch_id)`` is
 a reduced same-family config for CPU tests (small width, few experts,
-tiny vocab). The port runs the dense attention-only archs
-(``repro_torch.models.transformer``); the others stay data until their
-mixers are ported.
+tiny vocab). The port runs every decoder arch
+(``repro_torch.models.transformer``); the encoder-decoder and frontend
+archs stay data until their stubs are ported.
 
 ``cells(arch_id)`` lists the applicable input-shape cells:
 long_500k needs sub-quadratic attention (runs for ssm/hybrid/SWA archs,
@@ -47,7 +47,8 @@ def smoke(arch_id: str) -> ModelCfg:
     kw = dict(
         n_layers=len(cfg.pattern) * min(2, cfg.n_groups),
         d_model=128, n_heads=4, n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads
-        else 4, head_dim=32, d_ff=256, vocab=512, loss_chunk=128,
+        else 4, head_dim=32, d_ff=256, vocab=512, moe_group=256,
+        loss_chunk=128,
     )
     if cfg.n_kv_heads == cfg.n_heads:
         kw["n_heads"] = kw["n_kv_heads"] = 4

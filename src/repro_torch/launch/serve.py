@@ -7,7 +7,9 @@ the counterpart of ``repro/launch/serve.py``, with the same flags and
     ``--kind``), or another ``--scenario``, through the versioned
     serving runtime, with per-op percentiles over the measured steps.
   * ``--service lm`` -- batched LM serving (prefill + greedy decode)
-    through :class:`repro_torch.serve.ServeEngine` on a reduced config.
+    through :class:`repro_torch.serve.ServeEngine` on the arch's smoke
+    config at f32, as the reference's (every decoder arch, the MoE,
+    Mamba and RWKV6 ones included).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --service index \\

@@ -2,12 +2,13 @@
 
 The port's own copy of ``repro/models/config.py``: the same frozen
 dataclasses, fields and defaults, less the reference's XLA knobs
-(attention chunk sizes and causal pruning, MoE grouping and shard_map
-dispatch, ``scan_layers``): the port's attention is one kernel launch
-and its layers run as a Python loop, so it has nothing for them to set.
-The training knobs stay: ``loss_chunk`` (cross-entropy in sequence
-chunks) and ``remat`` (``none``, ``dots`` or ``full``, mapped onto
-``torch.utils.checkpoint`` per layer group).
+(attention chunk sizes and causal pruning, shard_map dispatch,
+``scan_layers``): the port's attention is one kernel launch and its
+layers run as a Python loop, so it has nothing for them to set.
+``moe_group`` stays: MoE capacity is counted per group of tokens, so it
+decides which tokens drop. The training knobs stay: ``loss_chunk``
+(cross-entropy in sequence chunks) and ``remat`` (``none``, ``dots`` or
+``full``, mapped onto ``torch.utils.checkpoint`` per layer group).
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ class ModelCfg:
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
     act_dtype: str = "bfloat16"
+    moe_group: int = 4096                # tokens a MoE capacity group
     loss_chunk: int = 1024               # CE computed in seq chunks
     remat: str = "dots"                  # none | dots | full
 

@@ -1,6 +1,9 @@
 """Decoder-LM assembly, counterpart of ``repro/models/transformer.py``,
-for dense attention-only decoders (``pattern`` of ``a`` layers, no MoE,
-no frontend).
+for every decoder pattern: attention (``a``), Mamba (``m``) and RWKV6
+(``r``) layers, each ``a`` and ``m`` layer followed by a SwiGLU FFN or,
+where ``cfg.is_moe_layer(j)``, a MoE FFN (an ``r`` layer's channel mix is
+its FFN). Encoder-decoder models and the frontend stubs are not ported
+yet.
 
 A model is ``cfg.n_layers`` layers in ``cfg.n_groups`` groups of
 ``len(cfg.pattern)``; the reference stacks each group position's
@@ -8,7 +11,9 @@ parameters over the groups for ``lax.scan``, the port keeps one module a
 layer and loops over them. State-dict names follow the reference's tree
 with the group axis unstacked: ``groups.{g}.pos{j}.mixer.wq`` is
 ``params["groups"][f"pos{j}"]["mixer"]["wq"][g]``, in the same layout;
-:func:`load_reference_params` fills a model from that tree.
+:func:`load_reference_params` fills a model from that tree. Leaves the
+reference keeps in f32 whatever the activation type (Mamba's ``A_log``
+and ``D_skip``, RWKV6's ``u``) stay f32.
 
 Training (``DecoderLM(..., train=True)``): :func:`loss_fn` is the
 reference's chunked cross-entropy, and ``cfg.remat`` checkpoints each
@@ -18,19 +23,25 @@ products without batch dimensions (the projections, whose einsums lower
 to ``bmm`` over a batch of one) and recomputes the rest, attention
 included (the counterpart of ``checkpoint_dots_with_no_batch_dims``),
 ``"none"`` saves everything. The reference's ``scan_layers`` has no
-counterpart: the layers run as a Python loop. :func:`reference_tree` and
+counterpart: the layers run as a Python loop. The Mamba and RWKV
+recurrences train on the CPU through their plain versions under
+autograd; their CUDA kernels have no backward yet, so a model with such
+layers refuses ``train=True`` on the card. :func:`reference_tree` and
 :func:`from_reference_tree` map any ``{parameter name: tensor}`` dict
 (the parameters, the optimizer's moments) to the reference's tree with
 the group axis stacked, and back; :func:`reference_params` is the
 inverse of :func:`load_reference_params`.
 
 Caches keep the reference's stacked layout (``layers.pos{j}.k`` is
-``(G, B, Hkv, W, hd)``), but ``cache["len"]`` is a host int known to the
-caller, so a decode step reads nothing back and attention gets the
-cache's valid prefix as a view. The cache's k and v are updated in
-place: the cache returned by :func:`forward_with_cache` shares them with
-the one passed in. Ring caches (``cfg.window`` below ``max_len``) keep
-each slot's position in ``cache["pos"]`` as in the reference.
+``(G, B, Hkv, W, hd)``; a Mamba position holds ``conv`` (G, B, di, K-1)
+and ``h`` (G, B, di, ds) f32, an RWKV position ``shift_t``, ``shift_c``
+(G, B, D) and ``wkv`` (G, B, H, hd, hd) f32), but ``cache["len"]`` is a
+host int known to the caller, so a decode step reads nothing back and
+attention gets the cache's valid prefix as a view. Every cache tensor is
+updated in place: the cache returned by :func:`forward_with_cache`
+shares them with the one passed in. Ring caches (``cfg.window`` below
+``max_len``) keep each slot's position in ``cache["pos"]`` as in the
+reference.
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt_lib
 
 from ..device import resolve_device
-from . import layers
+from . import layers, moe as moe_lib, rwkv as rwkv_lib, ssm as ssm_lib
 from .config import ModelCfg
 
 
@@ -55,15 +66,17 @@ def _check_supported(cfg: ModelCfg) -> None:
         what = "encoder-decoder models (encdec)"
     elif cfg.frontend is not None:
         what = f"the {cfg.frontend} frontend"
-    elif cfg.moe is not None:
-        what = "MoE layers (moe)"
-    elif set(cfg.pattern) != {"a"}:
-        what = f"layer pattern {cfg.pattern!r} (mamba 'm' / rwkv 'r')"
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name}: {what} not ported yet (ROADMAP queue 1, item 5: "
-            f"the LM substrate's mixers); the port runs dense "
-            f"attention-only decoders")
+            f"the LM substrate's encoder-decoder and frontend stubs); the "
+            f"port runs decoder-only models")
+    bad = set(cfg.pattern) - set("amr")
+    if bad:
+        raise ValueError(f"{cfg.name}: unknown layer types {sorted(bad)}")
+    if cfg.moe is not None and len(cfg.pattern) % cfg.moe.every:
+        raise ValueError(f"{cfg.name}: moe.every must divide the pattern "
+                         f"length for scanned groups")
 
 
 class _Params(nn.Module):
@@ -79,31 +92,44 @@ class _Params(nn.Module):
         return self._parameters[name]
 
 
-class Attention(_Params):
-    def __init__(self, cfg, dtype, device, generator):
-        super().__init__(layers.init_attention(generator, cfg, dtype,
-                                               device))
-
-
-class SwiGLU(_Params):
-    def __init__(self, cfg, dtype, device, generator):
-        super().__init__(layers.init_swiglu(generator, cfg, dtype, device))
+# each layer type's parameter tree (mixer), and each FFN's
+_MIXERS = {"a": layers.init_attention, "m": ssm_lib.init_mamba,
+           "r": rwkv_lib.init_rwkv}
 
 
 class DecoderLayer(nn.Module):
-    """Attention block then SwiGLU block, each pre-norm with a residual."""
+    """Group position ``j``: its mixer (attention, Mamba or RWKV6) then,
+    except after RWKV6 (whose channel mix is its FFN), a SwiGLU or MoE
+    FFN; each block pre-norm with a residual."""
 
-    def __init__(self, cfg, dtype, device, generator):
+    def __init__(self, cfg, j: int, dtype, device, generator):
         super().__init__()
         self.cfg = cfg
-        self.mixer = Attention(cfg, dtype, device, generator)
-        self.ffn = SwiGLU(cfg, dtype, device, generator)
+        self.kind = cfg.layer_type(j)
+        self.moe = cfg.is_moe_layer(j)
+        self.mixer = _Params(_MIXERS[self.kind](generator, cfg, dtype,
+                                                device))
+        if self.kind != "r":
+            init = moe_lib.init_moe if self.moe else layers.init_swiglu
+            self.ffn = _Params(init(generator, cfg, dtype, device))
+
+    @property
+    def subs(self) -> tuple:
+        return ("mixer",) if self.kind == "r" else ("mixer", "ffn")
 
     def forward(self, x, positions, cache=None, cache_len=None,
                 cache_pos=None):
-        x, _ = layers.attention_block(x, self.mixer, self.cfg, positions,
-                                      cache=cache, cache_len=cache_len,
-                                      cache_pos=cache_pos)
+        if self.kind == "a":
+            x, _ = layers.attention_block(x, self.mixer, self.cfg, positions,
+                                          cache=cache, cache_len=cache_len,
+                                          cache_pos=cache_pos)
+        elif self.kind == "m":
+            x, _ = ssm_lib.mamba_block(x, self.mixer, self.cfg, cache=cache)
+        else:
+            x, _ = rwkv_lib.rwkv_block(x, self.mixer, self.cfg, cache=cache)
+            return x
+        if self.moe:
+            return moe_lib.moe_block(x, self.ffn, self.cfg)
         return layers.swiglu_block(x, self.ffn, self.cfg)
 
 
@@ -112,13 +138,20 @@ class DecoderLM(nn.Module):
     (default: seed 0 on the model's device), in ``cfg.act_dtype``, built
     for serving (no gradients) or, with ``train=True``, with parameters
     that require grad. ``device=None`` means the card and raises on a
-    host without one (:func:`repro_torch.device.resolve_device`)."""
+    host without one (:func:`repro_torch.device.resolve_device`). A model
+    with Mamba or RWKV6 layers refuses ``train=True`` on the card: their
+    recurrence kernels have no backward yet."""
 
     def __init__(self, cfg: ModelCfg, device=None, generator=None,
                  train: bool = False):
         super().__init__()
         _check_supported(cfg)
         dev = resolve_device(device)
+        if train and dev.type == "cuda" and set(cfg.pattern) & set("mr"):
+            raise NotImplementedError(
+                f"{cfg.name}: training Mamba ('m') or RWKV6 ('r') layers on "
+                f"the card needs the recurrence kernels' backward (ROADMAP "
+                f"queue 1, item 5.2); on the CPU their plain versions train")
         dtype = getattr(torch, cfg.act_dtype)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -129,7 +162,7 @@ class DecoderLM(nn.Module):
         self.final_ln = nn.Parameter(torch.ones((D,), dtype=dtype,
                                                 device=dev))
         self.groups = nn.ModuleList(
-            nn.ModuleDict({f"pos{j}": DecoderLayer(cfg, dtype, dev,
+            nn.ModuleDict({f"pos{j}": DecoderLayer(cfg, j, dtype, dev,
                                                    generator)
                            for j in range(len(cfg.pattern))})
             for _ in range(cfg.n_groups))
@@ -257,7 +290,10 @@ def load_reference_params(model: DecoderLM, tree) -> DecoderLM:
         _fill(param, tree[name], name)
     for g, j, layer in model.iter_layers():
         leaves = tree["groups"][f"pos{j}"]
-        for sub in ("mixer", "ffn"):
+        if set(leaves) != set(layer.subs):
+            raise ValueError(f"load_reference_params: pos{j} has "
+                             f"{sorted(leaves)}, the model {list(layer.subs)}")
+        for sub in layer.subs:
             mod = getattr(layer, sub)
             if set(leaves[sub]) != set(mod._parameters):
                 raise ValueError(
@@ -351,17 +387,34 @@ def loss_fn(model: DecoderLM, tokens, labels):
 # -------------------------------------------------------------- caches
 
 def init_cache(cfg: ModelCfg, batch: int, max_len: int, device=None):
-    """Decode cache in ``cfg.act_dtype``. Attention caches hold W =
-    min(max_len, window) kv slots; ring layout iff windowed and window <
-    max_len."""
+    """Decode cache in ``cfg.act_dtype`` (Mamba's ``h`` and RWKV6's
+    ``wkv`` in f32). Attention caches hold W = min(max_len, window) kv
+    slots; ring layout iff windowed and window < max_len. Mamba and RWKV6
+    states are O(1) a token."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.act_dtype)
     W = max_len if cfg.window is None else min(max_len, cfg.window)
-    shape = (cfg.n_groups, batch, cfg.n_kv_heads, W, cfg.hd)
-    cache = {"len": 0, "layers": {
-        f"pos{j}": dict(k=torch.zeros(shape, dtype=dtype, device=dev),
-                        v=torch.zeros(shape, dtype=dtype, device=dev))
-        for j in range(len(cfg.pattern))}}
+    G, D = cfg.n_groups, cfg.d_model
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((G, batch, *shape), dtype=dt, device=dev)
+
+    layers_c = {}
+    for j, t in enumerate(cfg.pattern):
+        if t == "a":
+            shape = (cfg.n_kv_heads, W, cfg.hd)
+            layers_c[f"pos{j}"] = dict(k=zeros(*shape), v=zeros(*shape))
+        elif t == "m":
+            di = cfg.ssm.expand * D
+            layers_c[f"pos{j}"] = dict(
+                conv=zeros(di, cfg.ssm.d_conv - 1),
+                h=zeros(di, cfg.ssm.d_state, dt=torch.float32))
+        else:
+            hd = cfg.rwkv.head_dim
+            layers_c[f"pos{j}"] = dict(
+                shift_t=zeros(D), wkv=zeros(D // hd, hd, hd, dt=torch.float32),
+                shift_c=zeros(D))
+    cache = {"len": 0, "layers": layers_c}
     if W < max_len:
         cache["pos"] = torch.full((W,), -1, dtype=torch.int32, device=dev)
     return cache
@@ -369,7 +422,7 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, device=None):
 
 def forward_with_cache(model: DecoderLM, cache, tokens):
     """Shared prefill/decode forward. Returns (hidden, new_cache); the
-    kv tensors are the same, updated in place."""
+    cache tensors are the same, updated in place."""
     cfg = model.cfg
     x = F.embedding(tokens, model.embed)
     B, S = tokens.shape

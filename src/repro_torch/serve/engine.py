@@ -2,7 +2,8 @@
 slots. Counterpart of ``repro/serve/engine.py:ServeEngine``.
 
 The reference jit-compiles a (prefill, step) pair per signature; the port
-runs eagerly, one flash-attention launch per layer and step. The cache
+runs eagerly, one kernel launch per attention, Mamba or RWKV6 layer and
+step (flash attention, the selective scan, wkv6). The cache
 length is a host int, so the decode loop reads nothing back from the
 card until the tokens are returned: the host runs ahead and queues the
 steps.

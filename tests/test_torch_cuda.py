@@ -8,7 +8,10 @@ sync-free ``server.insert``, a smoke LM on the card equal to the same
 weights on the CPU, and the attention backward kernels against their
 plain version (each gradient within one bf16 ulp, or 1e-5 in f32, plus
 1e-5 of its largest) with a smoke model's training gradients on the card
-equal to the CPU's.
+equal to the CPU's; the wkv6 and selective-scan kernels against their
+plain versions (outputs and states within 2e-5 of the largest value),
+and smoke phi3.5-moe, jamba and rwkv6 models on the card against the
+same weights on the CPU.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false (the decision is made in a
@@ -1029,3 +1032,142 @@ def test_distributed_server_insert_is_sync_free(cuda, kind):
     srv.commit()
     assert len(srv.head_index) == 20000 + 4 * 2000
     assert srv.stats["recoveries"] == 0
+
+
+# the recurrence kernels (wkv6, selective scan) against their plain
+# versions: both run the same f32 arithmetic per token, with bf16 inputs
+# rounded identically (the selective scan's db in the activation type),
+# and differ only in the order of the f32 sums (over the head's keys or
+# the d_state states) and in the exponential's last bits, so each output
+# and state lies within 2e-5 of the largest |value| of its kind
+REC_REL = 2e-5
+
+
+def _rec_close(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32
+        bar = REC_REL * float(w.abs().max())
+        assert float((g - w).abs().max()) <= bar
+
+
+def _wkv_inputs(cuda, B, S, H, hd, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+
+    r, k, v = (rnd(B, S, H, hd).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(B, S, H, hd) - 1))
+    return r, k, v, w, rnd(H, hd) * 0.1, rnd(B, H, hd, hd)
+
+
+@pytest.mark.parametrize("S", [1, 5, 300])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_matches_plain(cuda, S, hd, dtype):
+    from repro_torch.kernels.wkv import kernel as wk
+    from repro_torch.kernels.wkv.ref import wkv6_plain
+    args = _wkv_inputs(cuda, 2, S, 3, hd, dtype, S + hd)
+    before = wk.launch_count()
+    got = wk.wkv6(*args)
+    assert wk.launch_count() == before + 1
+    _rec_close(got, wkv6_plain(*args))
+    # in place: the state buffer given as out_state
+    state = args[-1].clone()
+    y, s = wk.wkv6(*args[:-1], state, out_state=state)
+    assert s is state
+    _rec_close((y, state), got)
+
+
+def _scan_inputs(cuda, B, S, di, ds, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+
+    dt = torch.nn.functional.softplus(rnd(B, S, di) - 2).to(dtype)
+    A = -torch.arange(1, ds + 1, device=cuda).float().expand(di, ds) * (
+        1 + 0.5 * torch.rand((di, ds), generator=g, device=cuda))
+    return (dt, rnd(B, S, di).to(dtype), A.contiguous(),
+            rnd(B, S, ds).to(dtype), rnd(B, S, ds).to(dtype), rnd(di),
+            rnd(B, di, ds))
+
+
+@pytest.mark.parametrize("S", [1, 5, 300])
+@pytest.mark.parametrize("di,ds", [(256, 4), (300, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_matches_plain(cuda, S, di, ds, dtype):
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.selective_scan.ref import selective_scan_plain
+    args = _scan_inputs(cuda, 2, S, di, ds, dtype, S + ds)
+    before = ssk.launch_count()
+    got = ssk.selective_scan(*args)
+    assert ssk.launch_count() == before + 1
+    _rec_close(got, selective_scan_plain(*args))
+    state = args[-1].clone()
+    y, h = ssk.selective_scan(*args[:-1], state, out_state=state)
+    assert h is state
+    _rec_close((y, state), got)
+
+
+def test_recurrence_wrappers_raise(cuda):
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.wkv import kernel as wk
+    args = _wkv_inputs(cuda, 1, 4, 2, 48, torch.float32, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        wk.wkv6(*args)
+    args = _wkv_inputs(cuda, 1, 4, 2, 32, torch.float32, 0)
+    with pytest.raises(ValueError, match="w must be"):
+        wk.wkv6(*args[:3], args[3].bfloat16(), *args[4:])
+    with pytest.raises(NotImplementedError, match="backward"):
+        wk.wkv6(args[0].requires_grad_(), *args[1:])
+    args = _scan_inputs(cuda, 1, 4, 64, 17, torch.float32, 0)
+    with pytest.raises(ValueError, match="d_state"):
+        ssk.selective_scan(*args)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "jamba-1.5-large-398b", "rwkv6-3b"])
+def test_smoke_mixer_lm_on_card_equals_cpu(cuda, arch):
+    """A smoke mixer model on the card (flash attention, selective scan,
+    wkv6) and the same weights on the CPU (plain versions), f32, MoE
+    capacity 4.0: teacher-forced logits within 1e-4 of their scale, and
+    prefill plus decode within 1e-4 of the card's teacher-forced logits.
+    Training such a model on the card is refused (MoE alone trains)."""
+    import dataclasses
+
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.wkv import kernel as wk
+    cfg = configs.smoke(arch).with_(act_dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+    cpu = transformer.DecoderLM(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(3))
+    gpu = transformer.DecoderLM(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(4))
+    gpu.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 40))
+    n = {"m": cfg.pattern.count("m"), "r": cfg.pattern.count("r")}
+    before = (ssk.launch_count(), wk.launch_count())
+    got = transformer.forward(gpu, torch.as_tensor(toks, device=cuda))
+    G = cfg.n_groups
+    assert (ssk.launch_count() - before[0], wk.launch_count() - before[1]) \
+        == (G * n["m"], G * n["r"])
+    want = transformer.forward(cpu, torch.as_tensor(toks))
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) / scale < 1e-4
+    P = 34
+    lg, cache = transformer.prefill(gpu, torch.as_tensor(toks[:, :P],
+                                                         device=cuda), 40)
+    errs = [float((lg[:, 0] - got[:, P - 1]).abs().max())]
+    for i in range(P, 39):
+        lg, cache = transformer.decode_step(
+            gpu, cache, torch.as_tensor(toks[:, i:i + 1], device=cuda))
+        errs.append(float((lg[:, 0] - got[:, i]).abs().max()))
+    assert max(errs) / scale < 1e-4, errs
+    if set(cfg.pattern) & set("mr"):
+        with pytest.raises(NotImplementedError, match="backward"):
+            transformer.DecoderLM(cfg, train=True)
+    else:
+        transformer.DecoderLM(cfg, train=True)

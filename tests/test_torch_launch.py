@@ -1,7 +1,10 @@
 """The port's launchers and LM examples run end to end on the CPU when
 asked (``--device cpu``, smoke configs) and exit 0: the training
 launcher (its own loss-decrease check at 20 steps, checkpoints after
-steps 0 and 10), the serving launcher's index and LM services, and
+steps 0 and 10), the serving launcher's index and LM services, both
+launchers on the smoke rwkv6 and jamba (RWKV6, Mamba, attention and MoE
+through the plain versions; 3 training steps, under the loss check),
+and
 ``examples/port/{train_lm,serve_lm}.py`` (each asserts its own answers:
 a second phase resumed from the first's newest checkpoint, holding 11
 steps; greedy decode against the teacher-forced forward). The example's
@@ -35,12 +38,37 @@ CASES = {
     "example_train_lm": ["examples/port/train_lm.py", "--device", "cpu",
                          "--steps", "24", "--batch", "8", "--seq", "32"],
     "example_serve_lm": ["examples/port/serve_lm.py", "--device", "cpu"],
+    "serve_lm_rwkv6": ["-m", "repro_torch.launch.serve", "--service", "lm",
+                       "--arch", "rwkv6-3b", "--device", "cpu",
+                       "--batch", "2", "--prompt", "8", "--new", "4"],
+    "serve_lm_jamba": ["-m", "repro_torch.launch.serve", "--service", "lm",
+                       "--arch", "jamba-1.5-large-398b", "--device", "cpu",
+                       "--batch", "2", "--prompt", "8", "--new", "4"],
+    "serve_lm_phi_moe": ["-m", "repro_torch.launch.serve", "--service",
+                         "lm", "--arch", "phi3.5-moe-42b-a6.6b", "--device",
+                         "cpu", "--batch", "2", "--prompt", "8", "--new", "4"],
+    "serve_lm_qwen3_moe": ["-m", "repro_torch.launch.serve", "--service",
+                           "lm", "--arch", "qwen3-moe-235b-a22b", "--device",
+                           "cpu", "--batch", "2", "--prompt", "8", "--new",
+                           "4"],
+    "train_rwkv6": ["-m", "repro_torch.launch.train", "--arch", "rwkv6-3b",
+                    "--smoke", "--device", "cpu", "--steps", "3", "--batch",
+                    "2", "--seq", "32"],
+    "train_jamba": ["-m", "repro_torch.launch.train", "--arch",
+                    "jamba-1.5-large-398b", "--smoke", "--device", "cpu",
+                    "--steps", "3", "--batch", "2", "--seq", "32"],
 }
 EXPECT = {"train": "qwen1.5-0.5b: 20 steps",
           "serve_index": "index service [uniform/spac-h]",
           "serve_lm": "lm serving [qwen1.5-0.5b]",
           "example_train_lm": "resumed from step 11",
-          "example_serve_lm": "agreement: 100.0%"}
+          "example_serve_lm": "agreement: 100.0%",
+          "serve_lm_rwkv6": "lm serving [rwkv6-3b]",
+          "serve_lm_jamba": "lm serving [jamba-1.5-large-398b]",
+          "serve_lm_phi_moe": "lm serving [phi3.5-moe-42b-a6.6b]",
+          "serve_lm_qwen3_moe": "lm serving [qwen3-moe-235b-a22b]",
+          "train_rwkv6": "rwkv6-3b: 3 steps",
+          "train_jamba": "jamba-1.5-large-398b: 3 steps"}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

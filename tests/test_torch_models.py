@@ -3,8 +3,13 @@ the same numpy inputs and weights: ``rms_norm``, ``rotary``,
 ``swiglu_block``, ``attention_block`` in its three cache branches (none,
 ring, linear), and teacher-forced ``forward`` logits of the smoke
 configs of qwen1.5-0.5b (QKV bias, set nonzero here since both packages
-initialise it to 0), yi-9b (GQA) and h2o-danube-1.8b (sliding window),
-with the weights carried by ``load_reference_params``."""
+initialise it to 0), yi-9b (GQA), h2o-danube-1.8b (sliding window),
+phi3.5-moe and qwen3-moe (MoE FFNs), jamba (Mamba, attention and MoE in
+one pattern) and rwkv6 (RWKV6 layers), with the weights carried by
+``load_reference_params``. For the mixer archs, prefill plus
+step-by-step decode against the reference's teacher-forced forward, under
+``tests/test_models.py``'s protocol (f32, MoE capacity 4.0 so no token
+drops, B=2, S=40, within 1e-4 of the logits' scale)."""
 
 from __future__ import annotations
 
@@ -42,8 +47,9 @@ def _np(tree):
 
 
 # the reference's XLA knobs, which the port's ModelCfg does not carry
+# (``moe_group`` it does: capacity is counted per group)
 XLA_FIELDS = {"attn_chunk_q", "attn_chunk_k", "attn_causal_prune",
-              "moe_group", "moe_shard_map", "scan_layers"}
+              "moe_shard_map", "scan_layers"}
 
 
 def _same_cfg(cfg, jcfg):
@@ -164,8 +170,12 @@ def _models(arch, seed=0):
     return cfg, jcfg, params, model
 
 
+MIXER_ARCHS = ["phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
+               "jamba-1.5-large-398b", "rwkv6-3b"]
+
+
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-9b",
-                                  "h2o-danube-1.8b"])
+                                  "h2o-danube-1.8b", *MIXER_ARCHS])
 def test_forward_logits_match_reference(arch):
     cfg, jcfg, params, model = _models(arch)
     toks = np.random.default_rng(7).integers(0, cfg.vocab, (2, 40)
@@ -196,5 +206,52 @@ def test_state_dict_names_follow_the_reference_tree():
                                   "qwen3-moe-235b-a22b",
                                   "seamless-m4t-large-v2", "internvl2-26b"])
 def test_unported_mixers_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        transformer.DecoderLM(configs.smoke(arch), device="cpu")
+    """The encoder-decoder and frontend archs still raise; the mixer
+    archs (ported) build, and their smoke forward matches the
+    reference's."""
+    if arch not in MIXER_ARCHS:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1, item 5"):
+            transformer.DecoderLM(configs.smoke(arch), device="cpu")
+        return
+    cfg, jcfg, params, model = _models(arch, seed=1)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab, (2, 24)
+                                             ).astype(np.int32)
+    got = transformer.forward(model, torch.from_numpy(toks))
+    want = jT.forward(params, jnp.asarray(toks), jcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("arch", MIXER_ARCHS)
+def test_decode_matches_reference_forward(arch):
+    cfg, jcfg = _cfg(arch)
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+        jcfg = jcfg.with_(moe=dataclasses.replace(jcfg.moe,
+                                                  capacity_factor=4.0))
+    params = _np(jT.init_params(jax.random.PRNGKey(1), jcfg))
+    model = transformer.load_reference_params(
+        transformer.DecoderLM(cfg, device="cpu"), params)
+    B, S = 2, 40
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (B, S)
+                                             ).astype(np.int32)
+    ref = np.asarray(jT.forward(params, jnp.asarray(toks), jcfg))
+    P = S - 6
+    lg, cache = transformer.prefill(model, torch.from_numpy(toks[:, :P]), S)
+    errs = [np.abs(lg[:, 0].numpy() - ref[:, P - 1]).max()]
+    for i in range(P, S - 1):
+        lg, cache = transformer.decode_step(
+            model, cache, torch.from_numpy(toks[:, i:i + 1]))
+        errs.append(np.abs(lg[:, 0].numpy() - ref[:, i]).max())
+    assert max(errs) / np.abs(ref).max() < 1e-4, (arch, errs)
+
+
+def test_training_mixers_on_the_card_is_refused(monkeypatch):
+    """On a CUDA device ``train=True`` with Mamba or RWKV6 layers raises
+    before anything is allocated (no fallback to the plain versions)."""
+    monkeypatch.setattr(transformer, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    for arch in ("jamba-1.5-large-398b", "rwkv6-3b"):
+        with pytest.raises(NotImplementedError, match="backward"):
+            transformer.DecoderLM(configs.smoke(arch), device="cuda",
+                                  train=True)

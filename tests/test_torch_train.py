@@ -2,13 +2,16 @@
 numpy inputs and weights (carried by ``load_reference_params``): the
 token pipeline's determinism, ``cosine_lr`` and ``adamw_update`` (1e-6),
 ``loss_fn`` and its gradients on the smoke configs of qwen1.5-0.5b (QKV
-bias, set nonzero), yi-9b (GQA) and h2o-danube-1.8b (sliding window)
-against ``jax.value_and_grad(repro.models.transformer.loss_fn)`` (loss to
-1e-5, gradients to 1e-4 of each leaf's largest magnitude), one
+bias, set nonzero), yi-9b (GQA), h2o-danube-1.8b (sliding window),
+phi3.5-moe and qwen3-moe (MoE), jamba (Mamba, attention, MoE) and rwkv6
+(the mixers through their plain versions under autograd) against
+``jax.value_and_grad(repro.models.transformer.loss_fn)`` (loss to 1e-5,
+gradients to 1e-4 of each leaf's largest magnitude), one
 ``make_train_step`` step against the reference's (plain, microbatched,
-compressed), microbatch equivalence and compression as in
-``tests/test_models.py``, the three ``remat`` modes, and the weight and
-state trees carried across in both directions."""
+compressed on qwen; plain on each mixer arch), microbatch equivalence
+and compression as in ``tests/test_models.py``, the three ``remat``
+modes, and the weight and state trees (f32 leaves staying f32, the AdamW
+moments under the same keys) carried across in both directions."""
 
 from __future__ import annotations
 
@@ -31,7 +34,9 @@ from repro_torch.train import step as tstep
 
 torch.set_num_threads(1)
 
-ARCHS = ("qwen1.5-0.5b", "yi-9b", "h2o-danube-1.8b")
+MIXER_ARCHS = ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
+               "jamba-1.5-large-398b", "rwkv6-3b")
+ARCHS = ("qwen1.5-0.5b", "yi-9b", "h2o-danube-1.8b", *MIXER_ARCHS)
 
 
 def _cfg(arch, **kw):
@@ -181,7 +186,18 @@ def test_train_step_matches_reference(tcfg_kw):
     With int8 compression an element on a rounding edge may take the
     neighbouring level: ``m`` and ``ef`` within one level (the leaf's
     max |g| / 127), the norm within 1e-4."""
-    cfg, jcfg = _cfg("qwen1.5-0.5b")
+    _check_train_step("qwen1.5-0.5b", tcfg_kw)
+
+
+@pytest.mark.parametrize("arch", MIXER_ARCHS)
+def test_train_step_matches_reference_mixers(arch):
+    """One plain step of each mixer arch, under the bars of
+    :func:`test_train_step_matches_reference`."""
+    _check_train_step(arch, {})
+
+
+def _check_train_step(arch, tcfg_kw):
+    cfg, jcfg = _cfg(arch)
     opt = dict(lr=1e-3, warmup_steps=1, total_steps=10)
     tcfg = tstep.TrainCfg(opt=adamw.OptCfg(**opt), **tcfg_kw)
     jtcfg = jstep.TrainCfg(opt=jadamw.OptCfg(**opt), **tcfg_kw)
@@ -402,3 +418,28 @@ def test_weights_and_state_round_trip(arch):
     jopt = jadamw.adamw_init(jax.tree.map(jnp.asarray, params))
     assert jax.tree.structure(tree["opt"]["m"]) == \
         jax.tree.structure(_np(jopt["m"]))
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "rwkv6-3b"])
+def test_bf16_trees_keep_f32_leaves(arch):
+    """In bf16 the reference keeps Mamba's ``A_log`` and ``D_skip`` and
+    RWKV6's ``u`` in f32: the port's parameters and AdamW moments of
+    those leaves are f32, and a bf16 reference tree goes in and comes back
+    out unchanged."""
+    cfg, jcfg = configs.smoke(arch), jconfigs.smoke(arch)
+    params = _np(jT.init_params(jax.random.PRNGKey(5), jcfg))
+    model = transformer.load_reference_params(
+        transformer.DecoderLM(cfg, device="cpu"), params)
+    f32 = {n for n, p in model.named_parameters() if p.dtype == torch.float32}
+    want = {"A_log", "D_skip"} if arch.startswith("jamba") else {"u"}
+    assert {n.rsplit(".", 1)[1] for n in f32} == want
+    back = transformer.reference_params(model)
+    for path, a in jax.tree_util.tree_flatten_with_path(params)[0]:
+        b = _leaf(back, path)
+        assert b.dtype == np.float32
+        np.testing.assert_array_equal(b, np.asarray(a, np.float32))
+    _, state = tstep.init_train_state(0, cfg, tstep.TrainCfg(), device="cpu")
+    assert all(state["m"][n].dtype == torch.float32 for n in f32)
+    tree = tstep.state_tree(model, state)
+    assert jax.tree.structure(jax.tree.map(np.asarray, tree["opt"]["m"])) \
+        == jax.tree.structure(params)
