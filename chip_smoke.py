@@ -52,7 +52,15 @@ Phases, each printed as one JSON line (``"phase": ...``):
              and at a GQA and window shape, within ``BWD_TOL``; the
              forward's o and lse against ``attention_lse_plain`` (within
              ``ATTN_TOL`` and ``LSE_TOL``) and the kernel chain's
-             gradients against the plain chain's (within ``CHAIN_TOL``).
+             gradients against the plain chain's (within ``CHAIN_TOL``);
+             tc against its mirror ``attention_bwd_tc_plain`` (within
+             one bf16 ulp + ``TC_MIRROR_TOL``); its time by events and
+             each kernel's (delta, tc's wgmma dkdv and dq) by the
+             profiler, it and the library's backward queued behind a
+             spin kernel (device-bound, by events), the tc kernels'
+             ptxas registers and spills, their HGMMA (and no HMMA) in
+             the SASS, the source's build seconds, and the backward's
+             share of the profiled step's device time.
 3c. mixers -- the MoE, Mamba and RWKV6 mixers (bf16, seeded weights):
              (a) phi3.5-moe at full width (d_model 4096, 32 heads over 8
              kv heads of 128, 16 experts top-2 of d_ff 6,400, vocab
@@ -264,7 +272,8 @@ from repro_torch.data.tokens import lm_batch  # noqa: E402
 from repro_torch.kernels.flash_attn import backward as fab  # noqa: E402
 from repro_torch.kernels.flash_attn import kernel as fak  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
-    attention_bwd_plain, attention_lse_plain, attention_plain)
+    attention_bwd_plain, attention_bwd_tc_plain, attention_lse_plain,
+    attention_plain)
 from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
 from repro_torch.kernels.frontier import ops as frontier_ops  # noqa: E402
 from repro_torch.kernels.frontier import prep, tuning  # noqa: E402
@@ -351,6 +360,14 @@ TRAIN_CLI_STEPS = 20
 # the backward kernel's other features (B, Hq, Hkv, S, d, window): GQA
 # and a window, at yi-9b's head width
 BWD_EXTRA = {"gqa_window": (2, 32, 4, 1024, 128, 256)}
+# the backward's kernels as torch.profiler names them (flash_bwd_<name>_kernel)
+BWD_KERNELS = ("delta", "dkdv_wgmma", "dq_wgmma")
+# tc's backward against its mirror (attention_bwd_tc_plain, the same
+# arithmetic), each of dq, dk, dv: |got - want| <= one bf16 ulp of
+# max(|got|, |want|) + this share of the largest |want| of the three (both
+# round f32 sums once to bf16; the sums differ by wgmma's summation order
+# and 2^x on the SFU); tests/test_torch_cuda.py holds the same bar
+TC_MIRROR_TOL = 5e-6
 # backward kernel against plain version, each of dq, dk, dv: |got - want|
 # <= rtol |want| + atol_rel (the largest |want| of the three). Both
 # compute in f32 from the same inputs and round once to the inputs' type,
@@ -633,8 +650,10 @@ def flat_kernel_row(run: dict, launches: int, dev) -> dict:
     equal = all(bool(torch.equal(a, b)) and bool(torch.equal(a, c))
                 for a, b, c in zip(got, want, split))
     err = float((got[0] - want[0]).abs().max())
+    recorded = {}
     by_kernel = kernel_ms_by(lambda: kk.knn_flat(q, pts, ok, k=K),
-                             "knn_flat", FLAT_KERNELS, reps=20)
+                             "knn_flat", FLAT_KERNELS, reps=20,
+                             records=recorded)
     ms = sum(by_kernel.values())
     events_ms = time_ms(lambda: kk.knn_flat(q, pts, ok, k=K), reps=20)
     plain_ms = time_ms(lambda: kk.knn_flat_plain(q, pts, ok, k=K), reps=5)
@@ -650,9 +669,11 @@ def flat_kernel_row(run: dict, launches: int, dev) -> dict:
             "launches": launches, "max_abs_err": err, "bit_equal": equal,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": by, "library_ms": None,
-            "timed": "ms: the two kernels' device time (torch.profiler); "
+            "timed": "ms: the two kernels' device time (torch.profiler, "
+                     "the mean over the launches it recorded); "
                      "events_ms: knn_flat back to back by CUDA events",
-            "kernel_ms": by_kernel, "events_ms": events_ms,
+            "kernel_ms": by_kernel, "device_launches_recorded": recorded,
+            "events_ms": events_ms,
             "shape": {"Q": Q, "N": N, "valid": n_ok, "D": D, "k": K},
             "grid": {"query_tiles": q_tiles, "splits": splits,
                      "slots_per_split": per, "threads": threads,
@@ -801,23 +822,54 @@ SIEVE_KERNELS = ("chunks", "single", "hist", "scan", "rank")
 FLAT_KERNELS = ("split", "merge")
 
 
-def kernel_ms_by(fn, prefix: str, names, reps: int = 5) -> dict:
-    """Device ms per call of ``fn`` of each kernel ``<prefix>_<name>_kernel``
-    it launches, by ``torch.profiler``."""
+def kernel_ms_by(fn, prefix: str, names, reps: int = 5,
+                 records: dict | None = None) -> dict:
+    """Device ms a launch of each kernel ``<prefix>_<name>_kernel`` that
+    ``fn`` launches (its ms a call where ``fn`` launches it once), by
+    ``torch.profiler`` with CPU and CUDA activity: the mean over the
+    launches the profile recorded. Profiles of a few milliseconds in this
+    script have dropped some of a call's kernel records (more often with
+    CUDA activity alone), so a total over ``reps`` would undercount.
+    ``records`` gets the launches of each name that the profile recorded
+    (``reps`` each when none was dropped); a name with none recorded
+    reads 0.0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         sync()
-    out = dict.fromkeys(names, 0.0)
+    total, seen = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
     for e in prof.key_averages():
         m = re.search(prefix + r"_(\w+?)_kernel", e.key)
-        if m and e.device_type == DeviceType.CUDA and m.group(1) in out:
-            out[m.group(1)] += e.self_device_time_total / 1e3 / reps
-    return out
+        if m and e.device_type == DeviceType.CUDA and m.group(1) in total:
+            total[m.group(1)] += e.self_device_time_total / 1e3
+            seen[m.group(1)] += e.count
+    if records is not None:
+        records.update(seen)
+    return {n: total[n] / seen[n] if seen[n] else 0.0 for n in names}
+
+
+def queued_ms(fn, reps: int = 10) -> float:
+    """Device-bound ms a call of ``fn`` by CUDA events: a spin kernel
+    (``torch.cuda._sleep``, ~0.1 s) holds the stream while the host
+    queues all ``reps`` calls, so the host's dispatch leaves no gap
+    between them (the profiler's device time without its dropped
+    records)."""
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / reps
 
 
 def host_ms(fn, reps: int = 10) -> float:
@@ -907,7 +959,9 @@ def sieve_kernel_row(run: dict, launches: dict, dev) -> dict:
     round_ms = time_ms(lambda: sieve_ops.segmented_partition(
         pts, lo, hi, seg, act, lam=lam, n_chunks=sieve_ops.max_chunks(
             n, PHI)), reps=10)
-    by_kernel = kernel_ms_by(kernels, "sieve", SIEVE_KERNELS)
+    recorded = {}
+    by_kernel = kernel_ms_by(kernels, "sieve", SIEVE_KERNELS,
+                             records=recorded)
     ms = sum(by_kernel.values())
     enqueue_ms = host_ms(kernels)
     tree = run["snap"].index.tree
@@ -958,11 +1012,12 @@ def sieve_kernel_row(run: dict, launches: dict, dev) -> dict:
             "shape": {"N": n, "D": D, "lam": lam, "buckets": K,
                       "block_n": B, "single_segments": n_single,
                       "multi_chunks": n_multi, "dtype": str(pts.dtype)},
-            "timed": "ms: the five kernels' device time (torch.profiler); "
+            "timed": "ms: the five kernels' device time (torch.profiler, "
+                     "the mean over the launches it recorded); "
                      "events_ms: sieve_round back to back by CUDA events; "
                      "with_offsets_scan_ms: segmented_partition likewise",
-            "kernel_ms": by_kernel, "events_ms": events_ms,
-            "host_enqueue_ms": enqueue_ms,
+            "kernel_ms": by_kernel, "device_launches_recorded": recorded,
+            "events_ms": events_ms, "host_enqueue_ms": enqueue_ms,
             "with_offsets_scan_ms": round_ms,
             "build_rounds": build_rounds,
             "plain": "ref.sieve_round_plain (the decomposition in torch)",
@@ -1085,10 +1140,11 @@ def run_baseline(name: str, dev, **build_kw) -> dict:
     return run
 
 
-def device_ops(fn, top: int = 6) -> dict:
+def device_ops(fn, top: int = 6, keep=()) -> dict:
     """``fn()`` once under ``torch.profiler``: the device time of its
     kernels, the kernels that took the most of it and the torch ops that
-    launched the most (self device time, summed over calls). The
+    launched the most (self device time, summed over calls), and under
+    ``kept`` every kernel whose name holds one of ``keep``. The
     profiler's "Command Buffer Full" records (the host waiting for room
     in the launch queue) are not device time."""
     from torch.autograd import DeviceType
@@ -1112,7 +1168,10 @@ def device_ops(fn, top: int = 6) -> dict:
     return {"kernel_ms": sum(e.self_device_time_total
                              for e in kernels) / 1e3,
             "kernel_launches": sum(e.count for e in kernels),
-            "kernels": head(kernels), "ops": head(ops)}
+            "kernels": head(kernels), "ops": head(ops),
+            "kept": [{"name": e.key, "ms": e.self_device_time_total / 1e3,
+                      "calls": e.count} for e in kernels
+                     if any(k in e.key for k in keep)]}
 
 
 def build_compare(kd_run: dict, zd_run: dict, porth_run: dict,
@@ -1997,12 +2056,13 @@ def ptxas_usage(ptxas: str, label=str) -> dict:
 
 
 def flash_attn_build(ptxas: str, lib: str = "flash_attn",
-                     tc_kernels=("flash_tc_",)) -> dict:
+                     tc_kernels=("flash_tc_",), op: str = "hmma") -> dict:
     """Registers and spill bytes of every kernel of the attention library
-    ``lib`` from ``ptxas -v``, and the ``HMMA`` (tensor-core)
-    instructions of each in the library's SASS (``cuobjdump -sass``);
-    every tc instantiation (one a tc head width of each kernel whose
-    name starts with one of ``tc_kernels``) must hold some."""
+    ``lib`` from ``ptxas -v``, and the tensor-core instructions of each in
+    the library's SASS (``cuobjdump -sass``): ``HMMA`` (``mma.sync``) and
+    ``HGMMA`` (``wgmma``). Every tc instantiation (one a tc head width of
+    each kernel whose name starts with one of ``tc_kernels``) must hold
+    some of ``op``'s; with ``op="hgmma"`` none may hold an ``HMMA``."""
     kernels = ptxas_usage(ptxas, kernel_label)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(build.lib_path(lib))],
@@ -2013,13 +2073,17 @@ def flash_attn_build(ptxas: str, lib: str = "flash_attn",
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = kernel_label(m.group(1))
-            kernels.setdefault(name, {})["hmma"] = 0
-        elif name and "HMMA" in line:
+            kernels.setdefault(name, {}).update(hmma=0, hgmma=0)
+        elif name and re.search(r"\bHMMA\b", line):
             kernels[name]["hmma"] += 1
+        elif name and re.search(r"\bHGMMA\b", line):
+            kernels[name]["hgmma"] += 1
     tc = {k: v for k, v in kernels.items() if k.startswith(tc_kernels)}
     check(len(tc) == len(fak.TC_DIMS) * len(tc_kernels)
-          and all(v.get("hmma", 0) > 0 for v in tc.values()),
-          f"build: {lib}: tc kernels without HMMA instructions: {tc}")
+          and all(v.get(op, 0) > 0 for v in tc.values())
+          and (op != "hgmma" or not any(v["hmma"] for v in tc.values())),
+          f"build: {lib}: tc kernels without {op.upper()} instructions "
+          f"(or, for wgmma kernels, with mma.sync's HMMA): {tc}")
     check(all("registers" in v for v in kernels.values()),
           f"build: ptxas reported no registers for some kernels: {kernels}")
     return kernels
@@ -2442,6 +2506,27 @@ def grad_compare(got, want, tol: tuple) -> dict:
             "tolerance": {"rtol": rtol, "atol_of_max": arel}}
 
 
+def mirror_compare(got, want) -> dict:
+    """tc's dq, dk, dv against its mirror's ``want``: the largest share of
+    the bar (one bf16 ulp of max(|got|, |want|) + ``TC_MIRROR_TOL`` of the
+    largest |want|), the atol the one-ulp term alone leaves uncovered (a
+    share of the largest |want|), and the share of elements that
+    differ."""
+    top = max(float(w.float().abs().max()) for w in want)
+    share = atol = differs = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        big = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+        diff = (g - w).abs()
+        share = max(share, float((diff / (ulp + TC_MIRROR_TOL * top)).max()))
+        atol = max(atol, float((diff - ulp).clamp_min(0).max()) / top)
+        differs = max(differs, float((diff > 0).float().mean()))
+    return {"tolerance_share": share, "atol_needed_of_max": atol,
+            "elements_differing": differs, "all_close": share <= 1.0,
+            "tolerance": {"ulp_bf16": 1, "atol_of_max": TC_MIRROR_TOL}}
+
+
 def bwd_compare(q, k, v, o, lse, do, kw: dict, variant: str | None = None,
                 fwd: dict | None = None) -> dict:
     """A backward variant (the one the wrapper picks, or the one named)
@@ -2469,15 +2554,20 @@ def bwd_at(q, k, v, o, lse, do, kw: dict) -> dict:
     and ``simt`` against the plain version in the inputs' dtype, and on
     f32 copies (whose own forward gives o and lse); the forward's o and
     lse and the forward-and-backward chain held against the plain
-    versions in both (``bwd_compare`` with ``fwd``); their time (the three
-    launches of one call; the picked variant in turns with simt), the
-    plain version's time, and the backward of
-    ``scaled_dot_product_attention`` on the same inputs (one
-    ``torch.autograd.grad`` over a retained forward: its backward alone)
-    as the library yardstick. The bound counts q, k, v, o, do and lse
-    read once and dq, dk, dv written once over 3.35 TB/s, and 10 d
-    operations a visible pair (the products S and dP recomputed, dV, dK
-    and dQ) over the peak of the inputs' type."""
+    versions in both (``bwd_compare`` with ``fwd``); tc against its
+    mirror ``attention_bwd_tc_plain`` (``mirror_compare``); their time
+    (the three launches of one call; the picked variant in turns with
+    simt), the host's enqueue time of a call, the plain version's time,
+    and the backward of ``scaled_dot_product_attention`` on the same
+    inputs (one ``torch.autograd.grad`` over a retained forward: its
+    backward alone) as the library yardstick: by events back to back
+    (``library_ms``, its host dispatch included), queued behind a spin
+    kernel (``library_queued_ms``, device-bound; the kernels'
+    ``queued_ms`` beside it) and its kernels in one profiled call. The
+    bound counts q, k, v, o, do and lse read once and dq, dk, dv written
+    once over 3.35 TB/s, and 10 d operations a visible pair (the products
+    S and dP recomputed, dV, dK and dQ) over the peak of the inputs'
+    type."""
     cmp = bwd_compare(q, k, v, o, lse, do, kw,
                       fwd=fwd_compare(q, k, v, o, lse, kw))
     cmp_simt = bwd_compare(q, k, v, o, lse, do, kw, "simt")
@@ -2486,6 +2576,8 @@ def bwd_at(q, k, v, o, lse, do, kw: dict) -> dict:
     cmp32 = bwd_compare(q32, k32, v32, o32, lse32, do32, kw,
                         fwd=fwd_compare(q32, k32, v32, o32, lse32, kw))
     del q32, k32, v32, do32, o32, lse32
+    mirror = mirror_compare(fab.attention_bwd(q, k, v, o, lse, do, **kw),
+                            attention_bwd_tc_plain(q, k, v, o, lse, do, **kw))
     B, Hq, S, d = q.shape
     Hkv = k.shape[1]
 
@@ -2496,6 +2588,11 @@ def bwd_at(q, k, v, o, lse, do, kw: dict) -> dict:
         return attention_bwd_plain(q, k, v, o, lse, do, **kw)
 
     turns = [time_ms(kernel, reps=5)]
+    kernel_queued = queued_ms(kernel)
+    recorded = {}
+    by_kernel = kernel_ms_by(kernel, "flash_bwd", BWD_KERNELS,
+                             records=recorded)
+    enqueue_ms = host_ms(kernel)
     plain_ms = time_ms(plain, reps=2)
     cmp_simt["ms"] = time_ms(lambda: fab.attention_bwd(
         q, k, v, o, lse, do, variant="simt", **kw), reps=3)
@@ -2508,8 +2605,12 @@ def bwd_at(q, k, v, o, lse, do, kw: dict) -> dict:
                                               enable_gqa=Hkv != Hq)
                if mask is None else F.scaled_dot_product_attention(
                    *leaves, attn_mask=mask, enable_gqa=Hkv != Hq))
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        ref_out, leaves, do, retain_graph=True), reps=5)
+    def library():
+        return torch.autograd.grad(ref_out, leaves, do, retain_graph=True)
+
+    library_ms = time_ms(library, reps=5)
+    library_queued = queued_ms(library)
+    lib_kernels = device_ops(library)["kernels"]
     del ref_out, leaves, mask
     pairs = attn_pairs(S, S, kw["causal"], kw.get("window"), 0)
     elt = q.element_size()
@@ -2520,12 +2621,19 @@ def bwd_at(q, k, v, o, lse, do, kw: dict) -> dict:
                   if q.dtype == torch.bfloat16 else (FP32_OPS_PER_S, "fp32"))
     b_ms, by, how = bound(bytes_moved, ops, rate, kind)
     return {**cmp, "all_close": (cmp["all_close"] and cmp32["all_close"]
-                                 and cmp_simt["all_close"]),
+                                 and cmp_simt["all_close"]
+                                 and mirror["all_close"]),
             "f32_copy": cmp32, "simt": cmp_simt, "simt_ms": cmp_simt["ms"],
+            "mirror": mirror,
             "ms": float(np.mean(turns)), "ms_turns": turns,
-            "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
-            "bound_terms": how,
+            "queued_ms": kernel_queued,
+            "device_ms": sum(by_kernel.values()),
+            "device_ms_by_kernel": by_kernel,
+            "device_launches_recorded": recorded,
+            "host_enqueue_ms": enqueue_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_queued_ms": library_queued,
+            "library_kernels": lib_kernels,
+            "bound_ms": b_ms, "bound_by": by, "bound_terms": how,
             "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "d": d,
                       "dtype": str(q.dtype), "causal": kw["causal"],
                       "window": kw.get("window"), "visible_pairs": pairs,
@@ -2561,7 +2669,8 @@ def flash_attn_bwd_row(captured: tuple, launches: dict, by_variant: dict,
     ok = all(c["all_close"] for c in cases)
     check(ok, "flash_attn_bwd: kernel differs from its plain version beyond "
           "the bar (share of the allowed error, bf16 variant / bf16 simt / "
-          "f32; forward o and lse, bf16 / f32; chain, bf16 / f32): "
+          "f32; forward o and lse, bf16 / f32; chain, bf16 / f32; tc's "
+          "mirror): "
           + ", ".join(
               f"{c['variant']} {c['tolerance_share']:.3g} / "
               f"{c['simt']['tolerance_share']:.3g} / "
@@ -2569,7 +2678,8 @@ def flash_attn_bwd_row(captured: tuple, launches: dict, by_variant: dict,
               f"{c['forward']['tolerance_share']:.3g} / "
               f"{c['f32_copy']['forward']['tolerance_share']:.3g}; "
               f"{c['chain']['tolerance_share']:.3g} / "
-              f"{c['f32_copy']['chain']['tolerance_share']:.3g}"
+              f"{c['f32_copy']['chain']['tolerance_share']:.3g}; "
+              f"{c['mirror']['tolerance_share']:.3g}"
               for c in cases))
     check([c["variant"] for c in cases] == ["tc"] * len(cases),
           f"flash_attn_bwd: the cases took {[c['variant'] for c in cases]}")
@@ -2794,10 +2904,14 @@ def train_phase(dev) -> tuple[dict, dict]:
     check(all(v == 0 for k, v in launches.items()
               if k not in ("flash_attn", "flash_attn_bwd")),
           f"train: index kernels launched: {launches}")
-    prof = device_ops(lambda: step_fn(model, opt, batches[-1]), top=16)
+    prof = device_ops(lambda: step_fn(model, opt, batches[-1]), top=16,
+                      keep=("flash_bwd_",))
     bwd_ms = {re.sub(r".*::(flash_bwd_\w+?)_kernel.*", r"\1", k["name"]):
-              k["ms"] / k["calls"] for k in prof.get("kernels", [])
-              if "flash_bwd" in k["name"]}
+              k["ms"] / k["calls"] for k in prof["kept"]}
+    bwd_step = {"ms": sum(k["ms"] for k in prof["kept"]),
+                "launches": sum(k["calls"] for k in prof["kept"]),
+                "step_device_ms": prof["kernel_ms"]}
+    bwd_step["share"] = bwd_step["ms"] / prof["kernel_ms"]
     host = train_host_split(model, opt, batches[-1], cfg, tcfg)
     params = transformer.param_count(model)
     del model, opt, batches
@@ -2836,6 +2950,7 @@ def train_phase(dev) -> tuple[dict, dict]:
         "train_cli": {k: cli["flash_attn_by_variant"][k]
                       for k in ("bwd_tc", "bwd_simt")}}, dev)
     row["kernel_ms_in_step"] = bwd_ms
+    row["in_step"] = bwd_step
     out["flash_attn_launches"] = {"train": launches["flash_attn"],
                                   "train_cli": cli["launches"]["flash_attn"]}
     return out, row
@@ -3441,7 +3556,7 @@ def main() -> int:
     flash_build = flash_attn_build(report["flash_attn"]["ptxas"])
     bwd_build = flash_attn_build(
         report["flash_attn_bwd"]["ptxas"], "flash_attn_bwd",
-        ("flash_bwd_dkdv_tc_", "flash_bwd_dq_tc_"))
+        ("flash_bwd_dkdv_wgmma_", "flash_bwd_dq_wgmma_"), op="hgmma")
     emit({"phase": "build", "seconds": build_s,
           "kernels": {k: v["seconds"] for k, v in report.items()},
           "flash_attn": flash_build, "flash_attn_bwd": bwd_build,
@@ -3451,6 +3566,11 @@ def main() -> int:
     lm, flash_row = lm_phase(dev)
     emit(lm)
     train, bwd_row = train_phase(dev)
+    bwd_row["build"] = {
+        "seconds": report["flash_attn_bwd"]["seconds"],
+        "all_sources_seconds": build_s,
+        "tc_kernels": {k: v for k, v in bwd_build.items()
+                       if "wgmma" in k}}
     emit(train)
     flash_row["launches_by_path"].update(train["flash_attn_launches"])
     mixers, mixer_rows, phi_attn = mixers_phase(dev)

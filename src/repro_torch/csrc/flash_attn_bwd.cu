@@ -36,9 +36,9 @@
 //
 // What bounds it on an H100: the products. The function needs 10 d
 // operations a visible (query, slot) pair (S, dP, dV, dK, dQ at 2 d
-// apiece), about 2.5 times the forward's 4 d; the two kernels recompute S
-// and dP each, 14 d. In bf16 that is tensor-core work (989 TFLOP/s), in
-// f32 CUDA-core work (67 TFLOP/s).
+// apiece), about 2.5 times the forward's 4 d; simt's two kernels
+// recompute S and dP each, 14 d, tc's 20 d (below). In bf16 that is
+// tensor-core work (989 TFLOP/s), in f32 CUDA-core work (67 TFLOP/s).
 //
 // simt: blocks of 32 rows on 8 warps. Each warp owns 4 rows of the block
 // and holds their 4 x ceil(d / 32) accumulators a lane in registers; the
@@ -49,27 +49,55 @@
 // staged element the lane loads; p and dS reach the accumulation by
 // shuffles from the lane that computed them.
 //
-// tc: blocks of 64 rows on 4 warps, each owning 16 (the forward's tc
-// shape); the other side streams 32 rows a step through a 2-stage
-// cp.async ring at a pitch padded by 16 bytes (conflict-free ldmatrix).
-// All five products run on mma.sync m16n8k16 (bf16 in, f32 accumulate).
-// In dkdv a warp's kv rows are the A operand, so S^T = K Q^T and dP^T = V
-// dO^T come out with query rows as columns, and P^T and dS^T are already
-// the A fragments of dV += P^T dO and dK += dS^T Q (the accumulator
-// layout is the A layout); in dq the warp's Q and dO rows stay in
-// registers as A fragments and dS is the A fragment of dQ += dS K. Like
-// the forward, p and dS enter the value products as bf16 hi + lo (about
-// 16 significant bits, 1.5x the minimal products), so the kernel keeps
-// the f32 arithmetic's precision; exponentials are 2^x on the SFU of
-// scores in log2 units. mma.sync is not the card's full rate (wgmma with
-// TMA is).
+// tc (redesigned for Hopper; it replaced a first card version on
+// mma.sync m16n8k16 fed by cp.async, 64 rows a CTA on 4 warps and 32
+// rows of the other side a step, with a CTA barrier every step, at 3.1x
+// the library's time). A CTA is two consumer warpgroups and a producer
+// warpgroup of which one warp works. Its lane 0 brings 64-row tiles with TMA
+// (cp.async.bulk.tensor, 128-byte swizzle, 64 columns a box, zero fill
+// past the sequence and past d) into a ring of kStages stages on
+// mbarriers (full: the tile landed; empty: both warpgroups are done with
+// it), so the next tiles are in flight while the consumers compute; the
+// consumers take the registers the producer gives up (setmaxnreg). All
+// products are wgmma m64nNk16 (bf16 in, f32 accumulate):
+//
+//   dkdv: a CTA owns 128 kv rows of one kv head (64 a warpgroup), K and V
+//         resident in shared memory; the ring brings each q head's (of
+//         the group, in order: no atomics) query tiles of 64 rows, with
+//         their dO, lse and D. S^T = K Q^T and dP^T = V dO^T with both
+//         operands in shared memory (K-major); P^T and dS^T are built in
+//         the accumulator registers, which are the register A operand's
+//         layout, and feed dV += P^T dO and dK += dS^T Q with B the same
+//         Q and dO tiles read MN-major (the transposed order bf16 allows);
+//   dq:   a CTA owns 128 query rows of one q head (Q and dO resident);
+//         the ring brings the K and V tiles the rows see. S = Q K^T, dP =
+//         dO V^T, and dQ += dS K with K read MN-major; the scale at the
+//         end. dq stays apart from dkdv: no atomics, so a run is
+//         bit-reproducible.
+//
+// Widths: d a multiple of 16 up to 128. A row of a tile is 64 or 128
+// columns (DP): S and dP run d / 16 steps of depth 16, the value
+// products N = DP (TMA fills the columns past d with zeros; they are
+// never stored). Masks: a tile whose pairs are all visible skips the
+// per-pair test; a tile that crosses the causal diagonal, the window's
+// edge or the sequence's end tests each pair; a warpgroup skips a tile
+// none of its pairs sees. Like the forward, p and dS enter the value
+// products as bf16 hi + lo (about 16 significant bits): a single bf16
+// misses the bar by more than 10x (tests/test_torch_flash_attn_bwd.py),
+// so the kernels do 20 d operations a visible pair against the
+// function's 10 d (S and dP recomputed by dq, the value products
+// doubled). Exponentials are 2^x on the SFU of scores in log2 units. The
+// CPU mirror of this arithmetic is ref.py:attention_bwd_tc_plain.
 //
 // Built with -fmad=false like every source here; the products are written
 // as fmaf.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -99,6 +127,7 @@ struct Args {
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int hq, hkv, s, d, causal, window;
   float scale;
+  unsigned perm_q, perm_k, perm_v, perm_g;  // tc's tensor maps' dimensions
 };
 
 __device__ __forceinline__ float load(const float* p, long long i) {
@@ -407,72 +436,243 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// tc: the tensor-core variant (bf16, d % 16 == 0, d <= 128, rows 16-byte
-// aligned), mma.sync m16n8k16 as the forward's tc variant uses it
+// tc: Hopper's tensor cores (bf16, d % 16 == 0, d <= 128, rows 16-byte
+// aligned): wgmma on tiles that TMA brings into a shared-memory ring
 // ---------------------------------------------------------------------------
 
 namespace tcb {
 
 using bf16 = __nv_bfloat16;
-constexpr int kBlockM = 64;  // rows a CTA owns (kv rows in dkdv, q in dq)
-constexpr int kTile = 32;    // rows of the other side a step
-constexpr int kWarps = 4;    // each owns 16 of the CTA's rows
-constexpr int kThreads = kWarps * 32;
+constexpr int kTileRows = 64;   // rows of a tile: a warpgroup's, a stage's
+constexpr int kAtom = 64;       // columns of a 128-byte swizzle atom
+constexpr int kAtomBytes = kTileRows * kAtom * 2;  // one TMA box, 8 KB
+constexpr int kConsumers = 2;   // warpgroups that compute
+constexpr int kBlockRows = kConsumers * kTileRows;  // a CTA's own rows
+// + the producer warpgroup (setmaxnreg moves registers between whole
+// warpgroups), whose first warp issues the loads
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kStages = 3;
+// registers a thread at launch (__launch_bounds__(kThreads, 1): 65,536 /
+// 384, in steps of 8), the producer's after it gives some up, the
+// consumers' after they take them: (240 - 168) x 256 = (168 - 24) x 128
+constexpr int kLaunchRegs = 168;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+static_assert((kConsumerRegs - kLaunchRegs) * kConsumers <=
+                  kLaunchRegs - kProducerRegs,
+              "setmaxnreg: the consumers take more than the producer frees");
 constexpr float kLog2e = 1.4426950408889634f;
+// a barrier wait that has not seen its phase after this many polls
+// traps (a launch error) rather than hangs the card
+constexpr long long kSpinLimit = 1ll << 26;
 
-template <int D>
-__host__ __device__ constexpr int pitch() {
-  return D + 8;  // 16 bytes of padding: conflict-free ldmatrix phases
+// the four inputs TMA reads, each (d, then its sequence, head and batch
+// dimensions in the order of their strides)
+struct Maps {
+  CUtensorMap q, k, v, g;  // g: dO
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           bool ok) {
-  const int n = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// arrive, and add `bytes` to the transfers the phase waits for
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n"
+      "}\n" ::"r"(bar)
+      : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (long long n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n > kSpinLimit) __trap();
+  }
+}
+
+// one box (64 columns from `col`, 64 rows from `row`) of `map` into
+// shared memory at `dst`, counted on `bar`; `perm` places (row, head,
+// batch) in the map's dimensions 1..3 (2 bits each: 0 row, 1 head, 2
+// batch)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int head, int batch, unsigned perm) {
+  int c[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const unsigned code = (perm >> (2 * i)) & 3u;
+    c[i] = code == 0 ? row : code == 1 ? head : batch;
+  }
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(c[0]),
+      "r"(c[1]), "r"(c[2])
+      : "memory");
+}
+
+// a wgmma shared-memory descriptor of the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// A tile is kTileRows rows of atoms of 64 columns, atom a at a x 8 KB; a
+// row of an atom is 128 bytes (TMA's 128-byte swizzle), 8 rows 1 KB.
+// As a K-major operand (rows = M or N, columns = K): step kk's 16
+// columns start 32 bytes into atom kk / 4; the next 8 rows are 1 KB on
+// (LBO unused by this swizzle).
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
+  return smem_desc(tile + (kk >> 2) * kAtomBytes + (kk & 3) * 32, 16, 1024);
+}
+
+// As an MN-major operand (rows = K, columns = N): step kk's 16 rows start
+// kk x 2 KB in; the next 8 rows of K are 1 KB on (SBO), the next 64
+// columns of N the next atom (LBO)
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kk) {
+  return smem_desc(tile + kk * 16 * 128, kAtomBytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// the compiler must not read or reuse these registers across an
+// asynchronous wgmma: each is redefined here, after its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
 }
 
-__device__ __forceinline__ void ldsm_x4(unsigned addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
+// d (64 x 64 f32) (+)= A B^T, A (64 x 16) and B (64 x 16) bf16 in shared
+// memory, both K-major; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(unsigned addr, uint32_t& r0,
-                                          uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
+// d (64 x 64 f32) += A B, A (64 x 16 bf16) in registers (the
+// accumulator layout's fragments), B (16 x 64 bf16) in shared memory,
+// MN-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
+// d (64 x 128 f32) += A B, A (64 x 16 bf16) in registers (the
+// accumulator layout's fragments), B (16 x 128 bf16) in shared memory,
+// MN-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
@@ -494,400 +694,653 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// rows [row0, row0 + R) of a (rows, D) bf16 matrix with row stride
-// `stride` into shared memory at pitch<D>(); rows at or past `nrows` zero
-template <int D, int R>
-__device__ __forceinline__ void load_rows(bf16* s, const bf16* g,
-                                          long long stride, int row0,
-                                          int nrows, int tid) {
-  constexpr int kChunks = D / 8;
+// a 64 x 64 accumulator (the registers of S^T, dS or the like) as the A
+// operands of four steps of depth 16 along its columns, hi and lo halves
+__device__ __forceinline__ void a_frags(const float (&w)[32],
+                                        uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
 #pragma unroll
-  for (int i = 0; i < (R * kChunks + kThreads - 1) / kThreads; ++i) {
-    const int e = tid + i * kThreads;
-    if (e < R * kChunks) {
-      const int r = e / kChunks;
-      const int c = (e - r * kChunks) * 8;
-      const bool ok = row0 + r < nrows;
-      const bf16* src =
-          ok ? g + static_cast<long long>(row0 + r) * stride + c : g;
-      cp_async16(smem_u32(s + r * pitch<D>() + c), src, ok);
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      split(w[8 * kk + 2 * i], w[8 * kk + 2 * i + 1], hi[kk][i], lo[kk][i]);
     }
   }
 }
 
-// this warp's 16 rows [row0, row0 + 16) of a [rows][pitch] tile as A
-// fragments, one per 16 columns
-template <int D>
-__device__ __forceinline__ void a_frags(const bf16* s, int row0, int lane,
-                                        uint32_t (&f)[D / 16][4]) {
+// acc (64 x N) += W B over depth 64, W's hi and lo A fragments
+// (a_frags) against the tile `b` read MN-major: eight wgmma, issued after
+// the fences that pin their registers (committed by the caller)
+template <int N>
+__device__ __forceinline__ void value_products(float (&acc)[N],
+                                               uint32_t (&hi)[4][4],
+                                               uint32_t (&lo)[4][4],
+                                               uint32_t b) {
+  fence_regs(hi);
+  fence_regs(lo);
+  fence_regs(acc);
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int row = row0 + (lane & 15);
-    const int col = kk * 16 + (lane >> 4) * 8;
-    ldsm_x4(smem_u32(s + row * pitch<D>() + col), f[kk][0], f[kk][1],
-            f[kk][2], f[kk][3]);
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs(acc, hi[kk], mn_major(b, kk));
+    wgmma_rs(acc, lo[kk], mn_major(b, kk));
   }
 }
 
-// acc[n][..] (16 x 32: rows of A, the tile's 32 rows) += A B^T with A the
-// warp's fragments and B the tile [32][pitch] (its rows the n index)
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[4][4],
-                                        const uint32_t (&a)[D / 16][4],
-                                        const bf16* tile, int lane) {
-  const int mi = lane >> 3;
-  const int mr = lane & 7;
+// which pairs of kv rows [t0, t0 + 64) and query rows [i0, i0 + 64) are
+// visible: 0 none, 1 some (test each pair), 2 all
+__device__ __forceinline__ int tile_kind(int t0, int i0, const Args& a) {
+  const int t1 = min(t0 + kTileRows, a.s) - 1;
+  const int i1 = min(i0 + kTileRows, a.s) - 1;
+  if (t1 < t0 || i1 < i0) return 0;
+  const int lo = i0 - t1;  // i - t over the tile's valid pairs
+  const int hi = i1 - t0;
+  if ((a.causal && hi < 0) || (a.window > 0 && lo >= a.window)) return 0;
+  const bool all = t0 + kTileRows <= a.s && i0 + kTileRows <= a.s &&
+                   (!a.causal || lo >= 0) && (a.window <= 0 ||
+                                              hi < a.window);
+  return all ? 2 : 1;
+}
+
+// kv slot t visible to query i, both inside the sequence (no branch)
+__device__ __forceinline__ bool seen(int t, int i, const Args& a) {
+  return (t < a.s) & (i < a.s) & ((a.causal == 0) | (t <= i)) &
+         ((a.window <= 0) | (t > i - a.window));
+}
+
+// a tile row's columns: d rounded up to whole atoms
+__host__ __device__ constexpr int padded(int d) {
+  return (d + kAtom - 1) / kAtom * kAtom;
+}
+
+template <int DP>
+__host__ __device__ constexpr int tile_bytes() {
+  return DP / kAtom * kAtomBytes;
+}
+
+// shared memory: 1 KB to align the 128-byte swizzle's atoms, two
+// resident tiles a consumer, two tiles a stage, the dkdv stages' lse and
+// D (64 floats each), barriers
+template <int DP>
+constexpr size_t smem_bytes() {
+  return 1024 + static_cast<size_t>(tile_bytes<DP>()) *
+                    (2 * kConsumers + 2 * kStages) +
+         sizeof(float) * 2 * kStages * kTileRows +
+         sizeof(uint64_t) * (1 + 2 * kStages);
+}
+
+// the kernels' shared-memory regions
+struct Smem {
+  uint32_t own;    // kConsumers tiles (K in dkdv, Q in dq)
+  uint32_t own2;   // kConsumers tiles (V in dkdv, dO in dq)
+  uint32_t ring;   // kStages x 2 tiles
+  float* lse;      // [kStages][64], lse * log2 e (dkdv)
+  float* dl;       // [kStages][64], D (dkdv)
+  uint32_t bars;   // resident, full[kStages], empty[kStages]
+};
+
+template <int DP>
+__device__ __forceinline__ Smem carve(unsigned char* raw) {
+  constexpr int T = tile_bytes<DP>();
+  const uint32_t raw_s = smem_u32(raw);
+  const uint32_t base = (raw_s + 1023) & ~1023u;
+  Smem m;
+  m.own = base;
+  m.own2 = m.own + kConsumers * T;
+  m.ring = m.own2 + kConsumers * T;
+  const uint32_t fl = m.ring + kStages * 2 * T;
+  m.lse = reinterpret_cast<float*>(raw + (fl - raw_s));
+  m.dl = m.lse + kStages * kTileRows;
+  m.bars = fl + sizeof(float) * 2 * kStages * kTileRows;
+  return m;
+}
+
+__device__ __forceinline__ uint32_t full_bar(const Smem& m, int st) {
+  return m.bars + 8 * (1 + st);
+}
+
+__device__ __forceinline__ uint32_t empty_bar(const Smem& m, int st) {
+  return m.bars + 8 * (1 + kStages + st);
+}
+
+// barriers: the resident tiles' (one arrival: the producer's), each
+// stage's full (`full_count` arrivals) and empty (every consumer thread)
+__device__ __forceinline__ void init_bars(const Smem& m, int full_count) {
+  if (threadIdx.x == 0) {
+    mbar_init(m.bars, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_bar(m, st), full_count);
+      mbar_init(empty_bar(m, st), kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// two resident 64-row tiles a consumer from `map` (rows from `row0`, a
+// tile a consumer) at `dst`, counted on the resident barrier
+template <int DP>
+__device__ __forceinline__ void load_own(const Smem& m, uint32_t dst,
+                                         const CUtensorMap* map, int row0,
+                                         int head, int batch,
+                                         unsigned perm) {
+  constexpr int T = tile_bytes<DP>();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int w = 0; w < kConsumers; ++w) {
 #pragma unroll
-    for (int nn = 0; nn < 2; ++nn) {
-      uint32_t b0, b1, b2, b3;
-      const int row = nn * 16 + mr + 8 * (mi >> 1);
-      const int col = kk * 16 + 8 * (mi & 1);
-      ldsm_x4(smem_u32(tile + row * pitch<D>() + col), b0, b1, b2, b3);
-      mma(acc[2 * nn], a[kk], b0, b1);
-      mma(acc[2 * nn + 1], a[kk], b2, b3);
+    for (int at = 0; at < DP / kAtom; ++at) {
+      tma_load(dst + w * T + at * kAtomBytes, map, m.bars, at * kAtom,
+               row0 + w * kTileRows, head, batch, perm);
     }
   }
 }
 
-// out[n][..] (16 x D) += W T with W (16 x 32) the accumulator fragments
-// w (hi + lo bf16 halves as A) and T the tile [32][pitch] (k index = its
-// rows) through ldmatrix.trans
+// one 64-row tile of `map` at `dst`, counted on `bar`
+template <int DP>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int row, int head,
+                                          int batch, unsigned perm) {
+#pragma unroll
+  for (int at = 0; at < DP / kAtom; ++at) {
+    tma_load(dst + at * kAtomBytes, map, bar, at * kAtom, row, head, batch,
+             perm);
+  }
+}
+
+// this thread's warpgroup, warp-uniform as the compiler can see (a
+// shuffle from lane 0), so that setmaxnreg's branches are whole warps'
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+}
+
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+}
+
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+}
+
+// a 64 x padded(D) accumulator (rows `row0` + its 64, columns < D) times
+// `mul` into bf16 rows of `out` (row stride `stride`)
 template <int D>
-__device__ __forceinline__ void mma_wt(float (&out)[D / 8][4],
-                                       const float (&w)[4][4],
-                                       const bf16* tile, int lane) {
-  const int mi = lane >> 3;
-  const int mr = lane & 7;
+__device__ __forceinline__ void store_rows(bf16* out, long long stride,
+                                           const float (&acc)[padded(D) / 2],
+                                           int row0, float mul,
+                                           const Args& a) {
+  constexpr int DP = padded(D);
+  const int tid = threadIdx.x & 127;
+  const int r = row0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const int c0 = 2 * (tid & 3);
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    uint32_t hi[4], lo[4];
-    split(w[2 * kk][0], w[2 * kk][1], hi[0], lo[0]);
-    split(w[2 * kk][2], w[2 * kk][3], hi[1], lo[1]);
-    split(w[2 * kk + 1][0], w[2 * kk + 1][1], hi[2], lo[2]);
-    split(w[2 * kk + 1][2], w[2 * kk + 1][3], hi[3], lo[3]);
+  for (int j = 0; j < DP / 8; ++j) {
+    const int c = 8 * j + c0;
+    if (c >= D) continue;
 #pragma unroll
-    for (int nn = 0; nn < D / 16; ++nn) {
-      uint32_t b0, b1, b2, b3;
-      const int row = kk * 16 + mr + 8 * (mi & 1);
-      const int col = nn * 16 + 8 * (mi >> 1);
-      ldsm_x4_t(smem_u32(tile + row * pitch<D>() + col), b0, b1, b2, b3);
-      mma(out[2 * nn], hi, b0, b1);
-      mma(out[2 * nn], lo, b0, b1);
-      mma(out[2 * nn + 1], hi, b2, b3);
-      mma(out[2 * nn + 1], lo, b2, b3);
+    for (int u = 0; u < 2; ++u) {
+      if (r + 8 * u < a.s) {
+        *reinterpret_cast<__nv_bfloat162*>(out + (r + 8 * u) * stride + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * u] * mul,
+                                  acc[4 * j + 2 * u + 1] * mul);
+      }
     }
   }
 }
 
+// dK, dV for 128 kv rows of one kv head (64 a consumer warpgroup, K and V
+// resident): every query tile of 64 rows of every q head of the group
+// that sees them, through the ring with its lse and D
 template <int D>
-constexpr size_t dkdv_smem() {
-  return sizeof(bf16) * static_cast<size_t>(pitch<D>()) *
-             (2 * kBlockM + 4 * kTile) +
-         sizeof(float) * 4 * kTile;
-}
-
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(bf16) * static_cast<size_t>(pitch<D>()) *
-         (2 * kBlockM + 4 * kTile);
-}
-
-// dK, dV for 64 kv rows of one kv head: every query block of every q
-// head of the group that sees them, 32 query rows a step through a
-// 2-stage cp.async ring. The warp's 16 kv rows are the A side: S^T = K
-// Q^T and dP^T = V dO^T land in accumulator fragments whose columns are
-// query rows, so P^T and dS^T feed dV += P^T dO and dK += dS^T Q as A
-// fragments without leaving registers.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_tc_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char tcb_smem[];
-  constexpr int P = pitch<D>();
-  bf16* ks = reinterpret_cast<bf16*>(tcb_smem);  // [64][P]
-  bf16* vs = ks + kBlockM * P;                   // [64][P]
-  bf16* qs = vs + kBlockM * P;                   // [2][32][P]
-  bf16* gs = qs + 2 * kTile * P;                 // [2][32][P] dO
-  float* ls = reinterpret_cast<float*>(gs + 2 * kTile * P);  // [2][32] lse
-  float* ds = ls + 2 * kTile;                                // [2][32] D
-
-  const int k0 = blockIdx.x * kBlockM;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ Maps maps,
+                                const Args a) {
+  extern __shared__ unsigned char tcb_smem[];
+  constexpr int DP = padded(D);
+  constexpr int T = tile_bytes<DP>();
+  const Smem m = carve<DP>(tcb_smem);
+  const int k0 = blockIdx.x * kBlockRows;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int G = a.hq / a.hkv;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const float sl2 = a.scale * kLog2e;
-
-  const bf16* K = static_cast<const bf16*>(a.k) + at(a.sk, b, hk);
-  const bf16* V = static_cast<const bf16*>(a.v) + at(a.sv, b, hk);
-  load_rows<D, kBlockM>(ks, K, a.sk.s, k0, a.s, tid);
-  load_rows<D, kBlockM>(vs, V, a.sv.s, k0, a.s, tid);
-  cp_commit();
-
-  const int k1 = min(k0 + kBlockM, a.s);
+  const int k1 = min(k0 + kBlockRows, a.s);
   const int q_lo = a.causal ? k0 : 0;
   const int q_hi = a.window > 0 ? min(a.s, k1 - 1 + a.window) : a.s;
-  const int t_begin = (q_lo / kTile) * kTile;
-  const int n_tiles = q_hi > t_begin ? (q_hi - t_begin + kTile - 1) / kTile
-                                     : 0;
+  const int t_begin = (q_lo / kTileRows) * kTileRows;
+  const int n_tiles = q_hi > t_begin
+                          ? (q_hi - t_begin + kTileRows - 1) / kTileRows
+                          : 0;
   const int total = G * n_tiles;  // (head, query tile) steps
+  init_bars(m, 32);
+  const int wg = warpgroup();
 
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
-  }
-  const int kr0 = k0 + warp * 16 + g;  // this lane's kv rows kr0, kr0 + 8
-
-  auto issue = [&](int it, int st) {
-    const int h = hk * G + it / n_tiles;
-    const int q0 = t_begin + (it % n_tiles) * kTile;
-    const bf16* Q = static_cast<const bf16*>(a.q) + at(a.sq, b, h);
-    const bf16* dO = static_cast<const bf16*>(a.dout) + at(a.sdo, b, h);
-    load_rows<D, kTile>(qs + st * kTile * P, Q, a.sq.s, q0, a.s, tid);
-    load_rows<D, kTile>(gs + st * kTile * P, dO, a.sdo.s, q0, a.s, tid);
-    if (tid < kTile) {
+  if (wg == kConsumers) {  // the producer warpgroup: its first warp
+    producer_regs();
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x >= kConsumers * 128 + 32) return;
+    if (lane == 0) {
+      mbar_arrive_tx(m.bars, 2 * kConsumers * T);
+      load_own<DP>(m, m.own, &maps.k, k0, hk, b, a.perm_k);
+      load_own<DP>(m, m.own2, &maps.v, k0, hk, b, a.perm_v);
+    }
+    for (int it = 0; it < total; ++it) {
+      const int st = it % kStages;
+      mbar_wait(empty_bar(m, st), ((it / kStages) & 1) ^ 1);
+      const int h = hk * G + it / n_tiles;
+      const int q0 = t_begin + (it % n_tiles) * kTileRows;
       const long long rb = (static_cast<long long>(b) * a.hq + h) * a.s;
-      const int i = q0 + tid;
-      ls[st * kTile + tid] = i < a.s ? a.lse[rb + i] * kLog2e : 0.f;
-      ds[st * kTile + tid] = i < a.s ? a.delta[rb + i] : 0.f;
-    }
-  };
-  if (total > 0) issue(0, 0);
-  cp_commit();
-
-  for (int it = 0; it < total; ++it) {
-    const int st = it & 1;
-    const int q0 = t_begin + (it % n_tiles) * kTile;
-    if (it + 1 < total) issue(it + 1, st ^ 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const bf16* qt = qs + st * kTile * P;
-    const bf16* gt = gs + st * kTile * P;
-
-    float sT[4][4], pT[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sT[j][c] = pT[j][c] = 0.f;
-    }
-    {
-      uint32_t kf[D / 16][4];
-      a_frags<D>(ks, warp * 16, lane, kf);
-      mma_abt<D>(sT, kf, qt, lane);  // S^T = K Q^T
-    }
-    {
-      uint32_t vf[D / 16][4];
-      a_frags<D>(vs, warp * 16, lane, vf);
-      mma_abt<D>(pT, vf, gt, lane);  // dP^T = V dO^T (in pT for now)
-    }
-    // P^T and dS^T; column j's query row is q0 + 8 jn + 2 tig + (c & 1)
-#pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qc = 8 * jn + 2 * tig + (c & 1);
-        const int i = q0 + qc;
-        const int t = kr0 + (c >> 1) * 8;
-        const bool ok = i < a.s && t < a.s &&
-                        visible(t, i, a.causal, a.window);
-        const float p = ok ? ex2(sT[jn][c] * sl2 - ls[st * kTile + qc])
-                           : 0.f;
-        const float dsv = p * (pT[jn][c] - ds[st * kTile + qc]);
-        sT[jn][c] = p;
-        pT[jn][c] = dsv;
+      for (int r = lane; r < kTileRows; r += 32) {
+        const int i = q0 + r;
+        m.lse[st * kTileRows + r] =
+            i < a.s ? a.lse[rb + i] * kLog2e : __int_as_float(0x7f800000);
+        m.dl[st * kTileRows + r] = i < a.s ? a.delta[rb + i] : 0.f;
+      }
+      const uint32_t full = full_bar(m, st);
+      if (lane == 0) {
+        mbar_arrive_tx(full, 2 * T);
+        const uint32_t qt = m.ring + st * 2 * T;
+        load_tile<DP>(qt, &maps.q, full, q0, h, b, a.perm_q);
+        load_tile<DP>(qt + T, &maps.g, full, q0, h, b, a.perm_g);
+      } else {
+        mbar_arrive(full);
       }
     }
-    mma_wt<D>(dv, sT, gt, lane);  // dV += P^T dO
-    mma_wt<D>(dk, pT, qt, lane);  // dK += dS^T Q
-    __syncthreads();  // this stage is consumed before it is refilled
-  }
-  cp_wait<0>();
-
-  bf16* dK = static_cast<bf16*>(a.dk) + at(a.sdk, b, hk);
-  bf16* dV = static_cast<bf16*>(a.dv) + at(a.sdv, b, hk);
+  } else {  // a consumer warpgroup: kv rows kw0 .. kw0 + 63
+    consumer_regs();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int t4 = lane & 3;
+    const int kw0 = k0 + wg * kTileRows;
+    const int kr = kw0 + 16 * warp + (lane >> 2);  // rows kr, kr + 8
+    const float sl2 = a.scale * kLog2e;
+    const uint32_t kt = m.own + wg * T;
+    const uint32_t vt = m.own2 + wg * T;
+    float dk[DP / 2], dv[DP / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = 8 * n + 2 * tig;
-    if (kr0 < a.s) {
-      *reinterpret_cast<__nv_bfloat162*>(dK + kr0 * a.sdk.s + c) =
-          __floats2bfloat162_rn(dk[n][0] * a.scale, dk[n][1] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dV + kr0 * a.sdv.s + c) =
-          __floats2bfloat162_rn(dv[n][0], dv[n][1]);
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(m.bars, 0);
+    for (int it = 0; it < total; ++it) {
+      const int st = it % kStages;
+      mbar_wait(full_bar(m, st), (it / kStages) & 1);
+      const int q0 = t_begin + (it % n_tiles) * kTileRows;
+      const int kind = tile_kind(kw0, q0, a);
+      if (kind != 0) {
+        const uint32_t qt = m.ring + st * 2 * T;
+        const uint32_t gt = qt + T;
+        // S^T = K Q^T and dP^T = V dO^T (kv rows x query columns), two
+        // groups: the exponentials run while dP^T's products do
+        float sT[32], pT[32];
+        fence_regs(sT);
+        fence_regs(pT);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss(sT, k_major(kt, kk), k_major(qt, kk), kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss(pT, k_major(vt, kk), k_major(gt, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sT);
+        // P^T; register 4 j + c is kv row kr + 8 (c >> 1), query column
+        // 8 j + 2 t4 + (c & 1). A tile that crosses a mask's edge tests
+        // each pair (a select, no branch); a full one does not
+        const float* ls = m.lse + st * kTileRows;
+        const float* ds = m.dl + st * kTileRows;
+        if (kind == 2) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l2 =
+                *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t4);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              sT[4 * j + c] =
+                  ex2(fmaf(sT[4 * j + c], sl2, -((c & 1) ? l2.y : l2.x)));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = 8 * j + 2 * t4;
+            const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float p =
+                  ex2(fmaf(sT[4 * j + c], sl2, -((c & 1) ? l2.y : l2.x)));
+              sT[4 * j + c] = seen(kr + 8 * (c >> 1), q0 + col + (c & 1), a)
+                                  ? p
+                                  : 0.f;
+            }
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(pT);
+        // dS^T = P^T (dP^T - D); then dV += P^T dO and dK += dS^T Q
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(ds + 8 * j + 2 * t4);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int r = 4 * j + c;
+            pT[r] = sT[r] * (pT[r] - ((c & 1) ? d2.y : d2.x));
+          }
+        }
+        uint32_t ph[4][4], pl[4][4], dh[4][4], dlo[4][4];
+        a_frags(sT, ph, pl);
+        if constexpr (DP == kAtom) {  // one group: 16 value products
+          a_frags(pT, dh, dlo);
+          fence_regs(dh);
+          fence_regs(dlo);
+          fence_regs(dk);
+          value_products(dv, ph, pl, gt);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_rs(dk, dh[kk], mn_major(qt, kk));
+            wgmma_rs(dk, dlo[kk], mn_major(qt, kk));
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv);
+          fence_regs(dk);
+          fence_regs(ph);
+          fence_regs(pl);
+          fence_regs(dh);
+          fence_regs(dlo);
+        } else {  // 128 accumulators: dV's group ends before dS^T is split
+          value_products(dv, ph, pl, gt);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv);
+          fence_regs(ph);
+          fence_regs(pl);
+          a_frags(pT, dh, dlo);
+          value_products(dk, dh, dlo, qt);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dk);
+          fence_regs(dh);
+          fence_regs(dlo);
+        }
+      }
+      mbar_arrive(empty_bar(m, st));
     }
-    if (kr0 + 8 < a.s) {
-      *reinterpret_cast<__nv_bfloat162*>(dK + (kr0 + 8) * a.sdk.s + c) =
-          __floats2bfloat162_rn(dk[n][2] * a.scale, dk[n][3] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dV + (kr0 + 8) * a.sdv.s + c) =
-          __floats2bfloat162_rn(dv[n][2], dv[n][3]);
-    }
+    store_rows<D>(static_cast<bf16*>(a.dk) + at(a.sdk, b, hk), a.sdk.s, dk,
+                  kw0, a.scale, a);
+    store_rows<D>(static_cast<bf16*>(a.dv) + at(a.sdv, b, hk), a.sdv.s, dv,
+                  kw0, 1.f, a);
   }
 }
 
-// dQ for 64 query rows of one q head: the kv blocks they see, 32 slots a
-// step through a 2-stage ring. The warp's Q and dO rows stay in registers
-// as A fragments; S = Q K^T and dP = dO V^T are the forward's product, dS
-// feeds dQ += dS K as an A fragment.
+// dQ for 128 query rows of one q head (64 a consumer warpgroup, Q and dO
+// resident): the kv tiles of 64 slots the rows see, through the ring
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_tc_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char tcb_smem[];
-  constexpr int P = pitch<D>();
-  bf16* qs = reinterpret_cast<bf16*>(tcb_smem);  // [64][P]
-  bf16* gs = qs + kBlockM * P;                   // [64][P] dO
-  bf16* ks = gs + kBlockM * P;                   // [2][32][P]
-  bf16* vs = ks + 2 * kTile * P;                 // [2][32][P]
-
-  const int q0 = blockIdx.x * kBlockM;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ Maps maps,
+                              const Args a) {
+  extern __shared__ unsigned char tcb_smem[];
+  constexpr int DP = padded(D);
+  constexpr int T = tile_bytes<DP>();
+  const Smem m = carve<DP>(tcb_smem);
+  const int q0 = blockIdx.x * kBlockRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (a.hq / a.hkv);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const float sl2 = a.scale * kLog2e;
-
-  const bf16* Q = static_cast<const bf16*>(a.q) + at(a.sq, b, h);
-  const bf16* dO = static_cast<const bf16*>(a.dout) + at(a.sdo, b, h);
-  const bf16* K = static_cast<const bf16*>(a.k) + at(a.sk, b, hk);
-  const bf16* V = static_cast<const bf16*>(a.v) + at(a.sv, b, hk);
-  load_rows<D, kBlockM>(qs, Q, a.sq.s, q0, a.s, tid);
-  load_rows<D, kBlockM>(gs, dO, a.sdo.s, q0, a.s, tid);
-
-  const int q1 = min(q0 + kBlockM, a.s);
+  const int q1 = min(q0 + kBlockRows, a.s);
   const int hi = a.causal ? q1 : a.s;
   const int lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  const int t_begin = (lo / kTile) * kTile;
-  const int n_tiles = hi > t_begin ? (hi - t_begin + kTile - 1) / kTile : 0;
-  if (n_tiles > 0) {
-    load_rows<D, kTile>(ks, K, a.sk.s, t_begin, a.s, tid);
-    load_rows<D, kTile>(vs, V, a.sv.s, t_begin, a.s, tid);
-  }
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
+  const int t_begin = (lo / kTileRows) * kTileRows;
+  const int n_tiles =
+      hi > t_begin ? (hi - t_begin + kTileRows - 1) / kTileRows : 0;
+  init_bars(m, 1);
+  const int wg = warpgroup();
 
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-  a_frags<D>(qs, warp * 16, lane, qf);
-  a_frags<D>(gs, warp * 16, lane, gf);
-  const int r0 = q0 + warp * 16 + g;  // this lane's rows r0, r0 + 8
-  const long long rb = (static_cast<long long>(b) * a.hq + h) * a.s;
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int i = r0 + 8 * u;
-    lse2[u] = i < a.s ? a.lse[rb + i] * kLog2e : 0.f;
-    dl[u] = i < a.s ? a.delta[rb + i] : 0.f;
-  }
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dq[n][c] = 0.f;
-  }
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = t_begin + it * kTile;
-    const int st = it & 1;
-    if (it + 1 < n_tiles) {
-      load_rows<D, kTile>(ks + (st ^ 1) * kTile * P, K, a.sk.s, t0 + kTile,
-                          a.s, tid);
-      load_rows<D, kTile>(vs + (st ^ 1) * kTile * P, V, a.sv.s, t0 + kTile,
-                          a.s, tid);
-    }
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const bf16* kt = ks + st * kTile * P;
-    const bf16* vt = vs + st * kTile * P;
-
-    float sc[4][4], dp[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sc[j][c] = dp[j][c] = 0.f;
-    }
-    mma_abt<D>(sc, qf, kt, lane);  // S = Q K^T
-    mma_abt<D>(dp, gf, vt, lane);  // dP = dO V^T
-#pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int t = t0 + 8 * jn + 2 * tig + (c & 1);
-        const int u = c >> 1;
-        const int i = r0 + 8 * u;
-        const bool ok = i < a.s && t < a.s &&
-                        visible(t, i, a.causal, a.window);
-        const float p = ok ? ex2(sc[jn][c] * sl2 - lse2[u]) : 0.f;
-        sc[jn][c] = p * (dp[jn][c] - dl[u]);  // dS
+  if (wg == kConsumers) {  // the producer warpgroup: one thread
+    producer_regs();
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_arrive_tx(m.bars, 2 * kConsumers * T);
+      load_own<DP>(m, m.own, &maps.q, q0, h, b, a.perm_q);
+      load_own<DP>(m, m.own2, &maps.g, q0, h, b, a.perm_g);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        mbar_wait(empty_bar(m, st), ((it / kStages) & 1) ^ 1);
+        const uint32_t full = full_bar(m, st);
+        const uint32_t kt = m.ring + st * 2 * T;
+        const int t0 = t_begin + it * kTileRows;
+        mbar_arrive_tx(full, 2 * T);
+        load_tile<DP>(kt, &maps.k, full, t0, hk, b, a.perm_k);
+        load_tile<DP>(kt + T, &maps.v, full, t0, hk, b, a.perm_v);
       }
     }
-    mma_wt<D>(dq, sc, kt, lane);  // dQ += dS K
-    __syncthreads();  // this stage is consumed before it is refilled
-  }
-
-  bf16* dQ = static_cast<bf16*>(a.dq) + at(a.sdq, b, h);
+  } else {  // a consumer warpgroup: query rows qw0 .. qw0 + 63
+    consumer_regs();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int t4 = lane & 3;
+    const int qw0 = q0 + wg * kTileRows;
+    const int r0 = qw0 + 16 * warp + (lane >> 2);  // rows r0, r0 + 8
+    const float sl2 = a.scale * kLog2e;
+    const uint32_t qt = m.own + wg * T;
+    const uint32_t gt = m.own2 + wg * T;
+    const long long rb = (static_cast<long long>(b) * a.hq + h) * a.s;
+    float lse2[2], dl[2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = 8 * n + 2 * tig;
-    if (r0 < a.s) {
-      *reinterpret_cast<__nv_bfloat162*>(dQ + r0 * a.sdq.s + c) =
-          __floats2bfloat162_rn(dq[n][0] * a.scale, dq[n][1] * a.scale);
+    for (int u = 0; u < 2; ++u) {
+      const int i = r0 + 8 * u;
+      lse2[u] = i < a.s ? a.lse[rb + i] * kLog2e : __int_as_float(0x7f800000);
+      dl[u] = i < a.s ? a.delta[rb + i] : 0.f;
     }
-    if (r0 + 8 < a.s) {
-      *reinterpret_cast<__nv_bfloat162*>(dQ + (r0 + 8) * a.sdq.s + c) =
-          __floats2bfloat162_rn(dq[n][2] * a.scale, dq[n][3] * a.scale);
+    float dq[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+    mbar_wait(m.bars, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      mbar_wait(full_bar(m, st), (it / kStages) & 1);
+      const int t0 = t_begin + it * kTileRows;
+      const int kind = tile_kind(t0, qw0, a);
+      if (kind != 0) {
+        const uint32_t kt = m.ring + st * 2 * T;
+        const uint32_t vt = kt + T;
+        // S = Q K^T and dP = dO V^T (query rows x kv columns), two groups:
+        // the exponentials run while dP's products do
+        float sc[32], dp[32];
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss(sc, k_major(qt, kk), k_major(kt, kk), kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss(dp, k_major(gt, kk), k_major(vt, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sc);
+        // P; register 4 j + c is query row r0 + 8 (c >> 1), kv column
+        // 8 j + 2 t4 + (c & 1); masks as in dkdv
+        if (kind == 2) {
+#pragma unroll
+          for (int r = 0; r < 32; ++r) {
+            sc[r] = ex2(fmaf(sc[r], sl2, -lse2[(r >> 1) & 1]));
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < 32; ++r) {
+            const int u = (r >> 1) & 1;
+            const float p = ex2(fmaf(sc[r], sl2, -lse2[u]));
+            sc[r] = seen(t0 + 8 * (r >> 2) + 2 * t4 + (r & 1), r0 + 8 * u, a)
+                        ? p
+                        : 0.f;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int r = 0; r < 32; ++r) sc[r] = sc[r] * (dp[r] - dl[(r >> 1) & 1]);
+        uint32_t sh[4][4], sl[4][4];
+        a_frags(sc, sh, sl);
+        value_products(dq, sh, sl, kt);  // dQ += dS K
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_regs(sh);
+        fence_regs(sl);
+      }
+      mbar_arrive(empty_bar(m, st));
     }
+    store_rows<D>(static_cast<bf16*>(a.dq) + at(a.sdq, b, h), a.sdq.s, dq,
+                  qw0, a.scale, a);
   }
 }
 
-template <int D>
-int launch_as(int which, const Args& a, int batch, cudaStream_t s) {
-  const int nb = (a.s + kBlockM - 1) / kBlockM;
-  if (which == 1) {
-    auto kernel = flash_bwd_dkdv_tc_kernel<D>;
-    constexpr size_t smem = dkdv_smem<D>();
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda.so.1, which the CUDA runtime has
+// already loaded (this library links no -lcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(
+                                dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// error codes of the tc launch beyond cudaError_t's: the tensor map was
+// refused (kErrEncode + CUresult), or ptxas gave the kernel another
+// register count than setmaxnreg's sums assume (kErrRegs + its count)
+constexpr int kErrEncode = 10000;
+constexpr int kErrRegs = 20000;
+
+// a bf16 (B, H, S, d) view as a 4-dimensional tensor map: d, then the
+// sequence (boxes of 64 rows), head and batch dimensions by increasing
+// stride; `perm` gets where (row, head, batch) went
+int encode(CUtensorMap* map, const void* ptr, const Strides& st, int s,
+           int h, int batch, int d, unsigned* perm) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kErrEncode + CUDA_ERROR_NOT_FOUND;
+  struct Dim {
+    cuuint64_t n, stride;
+    cuuint32_t box;
+    unsigned code;
+  } dims[3] = {{static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(st.s),
+                kTileRows, 0},
+               {static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(st.h), 1,
+                1},
+               {static_cast<cuuint64_t>(batch),
+                static_cast<cuuint64_t>(st.b), 1, 2}};
+  for (Dim& x : dims) {
+    x.stride *= sizeof(bf16);
+    if (x.n == 1) x.stride = 16;  // never stepped over
+  }
+  for (int i = 1; i < 3; ++i) {  // by increasing stride
+    for (int j = i; j > 0 && dims[j].stride < dims[j - 1].stride; --j) {
+      const Dim x = dims[j];
+      dims[j] = dims[j - 1];
+      dims[j - 1] = x;
     }
-    kernel<<<dim3(nb, a.hkv, batch), kThreads, smem, s>>>(a);
-    return static_cast<int>(cudaGetLastError());
   }
-  auto kernel = flash_bwd_dq_tc_kernel<D>;
-  constexpr size_t smem = dq_smem<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<dim3(nb, a.hq, batch), kThreads, smem, s>>>(a);
+  const cuuint64_t gdim[4] = {static_cast<cuuint64_t>(d), dims[0].n,
+                              dims[1].n, dims[2].n};
+  const cuuint64_t gstride[3] = {dims[0].stride, dims[1].stride,
+                                 dims[2].stride};
+  const cuuint32_t box[4] = {kAtom, dims[0].box, dims[1].box, dims[2].box};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  *perm = dims[0].code | dims[1].code << 2 | dims[2].code << 4;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), gdim, gstride, box, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
+}
+
+constexpr int kMaxDevices = 64;
+
+// Sets the kernel's shared-memory limit and checks its register count on
+// the current device, once per kernel and device (a template instance
+// per kernel, so each has its own flags): later launches there skip both
+// calls.
+template <auto kKernel>
+int prepare(size_t smem) {
+  static std::atomic<bool> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (ready[dev].load(std::memory_order_acquire)) return 0;
+  err = cudaFuncSetAttribute(kKernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kKernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs != kLaunchRegs) return kErrRegs + attr.numRegs;
+  ready[dev].store(true, std::memory_order_release);
+  return 0;
+}
+
+template <auto kKernel>
+int launch_kernel(size_t smem, dim3 grid, const Maps& maps, const Args& a,
+                  cudaStream_t s) {
+  const int err = prepare<kKernel>(smem);
+  if (err != 0) return err;
+  kKernel<<<grid, kThreads, smem, s>>>(maps, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(int which, const Args& a, int batch, cudaStream_t s) {
+template <int D>
+int launch_as(int which, const Maps& maps, const Args& a, int batch,
+              cudaStream_t s) {
+  const dim3 grid((a.s + kBlockRows - 1) / kBlockRows,
+                  which == 1 ? a.hkv : a.hq, batch);
+  constexpr size_t smem = smem_bytes<padded(D)>();
+  if (which == 1) {
+    return launch_kernel<flash_bwd_dkdv_wgmma_kernel<D>>(smem, grid, maps, a,
+                                                         s);
+  }
+  return launch_kernel<flash_bwd_dq_wgmma_kernel<D>>(smem, grid, maps, a, s);
+}
+
+int launch(int which, Args a, int batch, cudaStream_t s) {
+  Maps maps;
+  int err = encode(&maps.q, a.q, a.sq, a.s, a.hq, batch, a.d, &a.perm_q);
+  if (err == 0) {
+    err = encode(&maps.k, a.k, a.sk, a.s, a.hkv, batch, a.d, &a.perm_k);
+  }
+  if (err == 0) {
+    err = encode(&maps.v, a.v, a.sv, a.s, a.hkv, batch, a.d, &a.perm_v);
+  }
+  if (err == 0) {
+    err = encode(&maps.g, a.dout, a.sdo, a.s, a.hq, batch, a.d, &a.perm_g);
+  }
+  if (err != 0) return err;
   switch (a.d) {
-    case 16: return launch_as<16>(which, a, batch, s);
-    case 32: return launch_as<32>(which, a, batch, s);
-    case 48: return launch_as<48>(which, a, batch, s);
-    case 64: return launch_as<64>(which, a, batch, s);
-    case 80: return launch_as<80>(which, a, batch, s);
-    case 96: return launch_as<96>(which, a, batch, s);
-    case 112: return launch_as<112>(which, a, batch, s);
-    case 128: return launch_as<128>(which, a, batch, s);
+    case 16: return launch_as<16>(which, maps, a, batch, s);
+    case 32: return launch_as<32>(which, maps, a, batch, s);
+    case 48: return launch_as<48>(which, maps, a, batch, s);
+    case 64: return launch_as<64>(which, maps, a, batch, s);
+    case 80: return launch_as<80>(which, maps, a, batch, s);
+    case 96: return launch_as<96>(which, maps, a, batch, s);
+    case 112: return launch_as<112>(which, maps, a, batch, s);
+    case 128: return launch_as<128>(which, maps, a, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

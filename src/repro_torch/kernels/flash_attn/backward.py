@@ -9,9 +9,24 @@ gradient, and returns ``(dq, dk, dv)``: three launches for CUDA tensors
 :func:`launch_count` and to ``launch_count(kernel)``), the plain version
 :func:`ref.attention_bwd_plain` for CPU tensors; any other device
 raises, and so does a build or launch error. :func:`variant_for` picks
-dkdv's and dq's variant before any launch: ``tc`` (tensor cores) for
-bf16 with the forward's tc head widths and 16-byte aligned rows,
-``simt`` for the rest; each call adds one to ``launch_count(variant)``.
+dkdv's and dq's variant before any launch: ``tc`` for bf16 with the
+forward's tc head widths and 16-byte aligned rows, ``simt`` for the
+rest; each call adds one to ``launch_count(variant)``.
+
+``tc`` is Hopper's design: a CTA of two consumer warpgroups and a
+producer warp, 64-row tiles brought by TMA into a shared-memory ring on
+mbarriers, every product a ``wgmma`` (dkdv: 128 kv rows resident, the
+query tiles of the group's q heads streamed; dq: 128 query rows
+resident, the kv tiles streamed), p and dS carried into the value
+products as bf16 hi + lo. It replaced a first version on ``mma.sync``
+fed by ``cp.async`` that took 3.1x the time of PyTorch's own attention
+backward at the training layer; the products bound it, at 20 d
+operations a visible pair against the function's 10 d (the source's
+note). Its arithmetic's CPU mirror is
+:func:`ref.attention_bwd_tc_plain`. The tensor maps TMA reads are made
+on the host for each call from the views' pointers and strides; a view
+with a zero stride is copied first.
+
 The reference has no ``custom_vjp``: XLA differentiates its jnp twin
 (``repro/models/layers.py:_chunk_attention``), and the tests hold these
 gradients against ``jax.vjp`` of it.
@@ -74,6 +89,15 @@ def _grad_like(t):
                        device=t.device).transpose(1, 2)
 
 
+def _strided(t):
+    """``t`` itself unless a dimension of more than one element has
+    stride 0 (a broadcast, which a tensor map cannot step over): then a
+    contiguous copy."""
+    if any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape)):
+        return t.contiguous()
+    return t
+
+
 def variant_for(q, k, v, o, do) -> str:
     """``"tc"`` for bf16 inputs of a tensor-core head width whose rows
     ``cp.async`` can load (:func:`kernel.variant_for`'s rule), else
@@ -118,7 +142,8 @@ def _backward(q, k, v, o, lse, do, causal, window, variant=None):
                                    window=window)
     B, Hq, S, d = q.shape
     Hkv = k.shape[1]
-    q, k, v, o, do = (fak._inner(t.to(q.dtype)) for t in (q, k, v, o, do))
+    q, k, v, o, do = (_strided(fak._inner(t.to(q.dtype)))
+                      for t in (q, k, v, o, do))
     lse = lse.contiguous()
     fits = variant_for(q, k, v, o, do)
     if variant is None:

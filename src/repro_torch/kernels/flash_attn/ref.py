@@ -19,13 +19,15 @@ the backward kernel's (``csrc/flash_attn_bwd.cu``) arithmetic: the
 gradients of :func:`attention_plain` from ``(q, k, v, o, lse, do)``, by
 FlashAttention-2's recomputation of ``p`` from the saved log-sum-exp.
 
-Beside them, plain mirrors of two CUDA variants' arithmetic, so the CPU
-tests can hold each design against :func:`attention_plain`:
-:func:`attention_split_plain` (``decode``: the kv span cut into chunks,
-a softmax per chunk, the chunks merged in order) and
-:func:`attention_tc_plain` (``tc``: bf16 products summed in f32, the
-scale after the product, an online softmax over 64-slot tiles, and the
-weights ``p`` carried into the value product as bf16 hi + lo).
+Beside them, plain mirrors of three CUDA designs' arithmetic, so the CPU
+tests can hold each against :func:`attention_plain` or
+:func:`attention_bwd_plain`: :func:`attention_split_plain` (``decode``:
+the kv span cut into chunks, a softmax per chunk, the chunks merged in
+order), :func:`attention_tc_plain` (``tc``: bf16 products summed in
+f32, the scale after the product, an online softmax over 64-slot tiles,
+and the weights ``p`` carried into the value product as bf16 hi + lo)
+and :func:`attention_bwd_tc_plain` (the ``tc`` backward: the same
+products, ``p`` and dS as bf16 hi + lo, in the kernels' tile order).
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ NEG_INF = -1e30
 _SCORE_BUDGET = 1 << 27
 # the tc variant's kv tile
 TC_BLOCK = 64
+# the tc backward's tile of rows streamed through its ring (query rows in
+# dkdv, kv slots in dq)
+TC_BWD_TILE = 64
+LOG2E = 1.4426950408889634
 
 
 def kv_span(Sq: int, Skv: int, q_offset: int, causal: bool, window,
@@ -240,3 +246,71 @@ def attention_tc_plain(q, k, v, *, causal: bool, window=None,
                + torch.einsum("bhqk,bhkd->bhqd", p_lo, vb[:, :, sl]))
         m = mx
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def _hi_lo(x, split: bool):
+    """``x`` as the value products take it: ``hi = bf16(x)`` plus ``lo
+    = bf16(x - hi)`` (``split``), or ``hi`` alone; f32 tensors holding
+    bf16 values."""
+    hi = _bf16(x)
+    return (hi, _bf16(x - hi)) if split else (hi,)
+
+
+def attention_bwd_tc_plain(q, k, v, o, lse, do, *, causal: bool,
+                           window=None, split: bool = True):
+    """:func:`attention_bwd_plain`'s function (the training form, ``Sq ==
+    Skv``) by the ``tc`` backward kernels' arithmetic
+    (``csrc/flash_attn_bwd.cu``): bf16 operands multiplied exactly and
+    summed in f32; ``D = rowsum(do * o)`` in f32; scores unscaled, ``p =
+    2^(s * scale * log2 e - lse * log2 e)`` on visible pairs; ``dS = p
+    (dP - D)``; ``p`` and ``dS`` enter the value products as bf16 hi + lo
+    (``split``; ``False`` tries a single bf16); the scale applied to dK
+    and dQ at the end. Tile order as the kernels take it: dK and dV sum
+    over the q heads of each kv head's group, and over each head's query
+    tiles of ``TC_BWD_TILE`` rows in order; dQ over kv tiles of
+    ``TC_BWD_TILE`` slots in order."""
+    B, Hq, S, d = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    dev = q.device
+    scale = 1.0 / (d ** 0.5)
+    sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    qb, kb, vb, dob = (_bf16(t) for t in (q, k, v, do))
+    delta = (do.float() * o.float()).sum(dim=-1)
+    lse2 = lse.float() * torch.tensor(LOG2E, dtype=torch.float32)
+    pos = torch.arange(S, device=dev)
+    T = TC_BWD_TILE
+
+    def grads(rows, cols, qg, dog, kg, vg, lg, dg):
+        """p and dS of query rows ``rows`` against kv slots ``cols``."""
+        s = torch.einsum("bhqd,bhkd->bhqk", qg[:, :, rows], kg[:, :, cols])
+        p = torch.exp2(s * sl2 - lg[:, :, rows, None])
+        p = torch.where(_visible(pos[cols], pos[rows], causal, window), p,
+                        0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dog[:, :, rows], vg[:, :, cols])
+        return p, p * (dp - dg[:, :, rows, None])
+
+    dk = torch.zeros((B, Hkv, S, d), device=dev)
+    dv = torch.zeros((B, Hkv, S, d), device=dev)
+    every = slice(0, S)
+    for g in range(G):  # head hk * G + g of each kv head hk
+        heads = slice(g, Hq, G)
+        qg, dog = qb[:, heads], dob[:, heads]
+        lg, dg = lse2[:, heads], delta[:, heads]
+        for q0 in range(0, S, T):
+            rows = slice(q0, q0 + T)
+            p, ds = grads(rows, every, qg, dog, kb, vb, lg, dg)
+            for part in _hi_lo(p, split):
+                dv += torch.einsum("bhqk,bhqd->bhkd", part, dog[:, :, rows])
+            for part in _hi_lo(ds, split):
+                dk += torch.einsum("bhqk,bhqd->bhkd", part, qg[:, :, rows])
+    kf = kb.repeat_interleave(G, dim=1)
+    vf = vb.repeat_interleave(G, dim=1)
+    dq = torch.zeros((B, Hq, S, d), device=dev)
+    for t0 in range(0, S, T):
+        cols = slice(t0, t0 + T)
+        _, ds = grads(every, cols, qb, dob, kf, vf, lse2, delta)
+        for part in _hi_lo(ds, split):
+            dq += torch.einsum("bhqk,bhkd->bhqd", part, kf[:, :, cols])
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))

@@ -33,6 +33,7 @@ from repro_torch.kernels.bbox import kernel as bk
 from repro_torch.kernels.flash_attn import backward as fab
 from repro_torch.kernels.flash_attn import kernel as fak
 from repro_torch.kernels.flash_attn.ref import (attention_bwd_plain,
+                                                attention_bwd_tc_plain,
                                                 attention_lse_plain,
                                                 attention_plain)
 from repro_torch.kernels.frontier import kernel as fk
@@ -827,6 +828,33 @@ def _bwd_close(got, want, dtype):
             float(((g - w).abs() / bar).max())
 
 
+# tc's kernels against their CPU mirror (attention_bwd_tc_plain, the same
+# arithmetic): |got - want| <= one bf16 ulp of max(|got|, |want|) +
+# TC_MIRROR_TOL (the largest |want| of the three). Both round f32
+# gradients once to bf16, so values near a rounding edge land one ulp
+# apart; before that rounding the f32 sums differ by wgmma's internal
+# summation order and 2^x on the SFU (2 f32 ulp of a term), which the
+# atol bounds where cancellation leaves a gradient small: 5e-6 is ~42
+# f32 ulps of the largest gradient (chip_smoke's backward row reads the
+# atol needed, `mirror.atol_needed_of_max`)
+TC_MIRROR_TOL = 5e-6
+
+
+def _mirror_close(got, want):
+    """dq, dk, dv of tc within one bf16 ulp of its mirror's, plus
+    ``TC_MIRROR_TOL`` of the largest magnitude."""
+    torch.cuda.synchronize()
+    top = max(float(w.float().abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        g, w = g.float(), w.float()
+        big = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+        bar = ulp + TC_MIRROR_TOL * top
+        assert bool(((g - w).abs() <= bar).all()), \
+            float(((g - w).abs() / bar).max())
+
+
 @pytest.mark.parametrize("B,Hq,Hkv,S,d,causal,window", [
     (2, 4, 4, 100, 64, True, None),      # MHA, ragged tail block
     (1, 8, 2, 64, 128, True, None),      # GQA, the widest head
@@ -834,12 +862,19 @@ def _bwd_close(got, want, dtype):
     (1, 2, 2, 70, 64, False, None),      # non-causal
     (1, 4, 1, 33, 32, False, 8),         # MQA, non-causal window
     (1, 2, 2, 1, 16, True, None),        # one row
+    (1, 4, 2, 200, 48, True, None),      # d = 48, ragged past 128 rows
+    (2, 4, 4, 77, 96, False, None),      # d = 96, non-causal, ragged
+    (1, 6, 3, 260, 112, True, 50),       # d = 112, window, ragged
+    (1, 4, 4, 130, 16, True, 64),        # d = 16, window, ragged
+    (1, 8, 4, 257, 128, False, 100),     # d = 128, non-causal window
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attn_bwd_matches_plain(cuda, B, Hq, Hkv, S, d, causal,
                                       window, dtype):
     """The training form: the forward's lse against the plain one, and
-    the three backward kernels against ``attention_bwd_plain``."""
+    the three backward kernels against ``attention_bwd_plain``; in bf16
+    (tc, every tc width) also against tc's mirror
+    ``attention_bwd_tc_plain`` (``_mirror_close``)."""
     q, k, v = _attn_inputs(cuda, B, Hq, Hkv, S, S, d, dtype, seed=S + d)
     do = torch.randn(q.shape, device=cuda).to(dtype)
     kw = dict(causal=causal, window=window)
@@ -856,6 +891,8 @@ def test_flash_attn_bwd_matches_plain(cuda, B, Hq, Hkv, S, d, causal,
         (before[0] + 3, before[1] + 1)
     _bwd_close(got, want, dtype)
     if variant == "tc":
+        _mirror_close(got, attention_bwd_tc_plain(q, k, v, o, lse, do,
+                                                  **kw))
         _bwd_close(fab.attention_bwd(q, k, v, o, lse, do, variant="simt",
                                      **kw), want, dtype)
 
@@ -884,9 +921,9 @@ def test_flash_attn_bwd_bit_reproducible(cuda):
 
 
 def test_flash_attn_bwd_tc_strided_and_unaligned(cuda):
-    """The models' (B, S, H, d) views go to tc as they are; a view whose
-    rows cp.async cannot load goes to simt, and both agree with the plain
-    version."""
+    """The models' (B, S, H, d) views go to tc as they are (a broadcast
+    dO is copied for its tensor map); a view with rows off 16 bytes goes
+    to simt, and all agree with the plain version."""
     B, S, H, d = 2, 96, 4, 64
     base = torch.randn((B, S, H, d + 8), device=cuda).to(torch.bfloat16)
     q = base[..., :d].transpose(1, 2)                 # row stride d + 8
@@ -903,6 +940,13 @@ def test_flash_attn_bwd_tc_strided_and_unaligned(cuda):
             ("tc" if kk is v else "simt")
         _bwd_close(fab.attention_bwd(q, kk, v, o, lse, do, causal=True),
                    want, torch.bfloat16)
+    wide = torch.randn((1, 1, 1, d), device=cuda).to(torch.bfloat16)
+    wide = wide.expand(B, H, S, d)                    # strides (0, 0, 0, 1)
+    o, lse = fak.flash_attention_lse(q, v, v, causal=True)
+    assert fab.variant_for(q, v, v, o, wide) == "tc"
+    _bwd_close(fab.attention_bwd(q, v, v, o, lse, wide, causal=True),
+               attention_bwd_plain(q, v, v, o, lse, wide, causal=True),
+               torch.bfloat16)
 
 
 def test_flash_attn_bwd_wrapper_raises(cuda):

@@ -5,7 +5,9 @@ against ``jax.vjp`` of the reference models' ``_chunk_attention`` (what
 XLA differentiates in the reference), at f32 on the same numpy inputs,
 within 1e-5 of the largest gradient magnitude; the training form's
 autograd function (what the models take with grad on) against the same;
-and the wrapper's refusals of what the kernel does not take."""
+the wrapper's refusals of what the kernel does not take; and the tc
+kernels' mirror (``attention_bwd_tc_plain``) within the bf16 bar of the
+plain version."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro.models import layers as jlayers
 from repro_torch.kernels.flash_attn import backward as fab
 from repro_torch.kernels.flash_attn import kernel as fak
 from repro_torch.kernels.flash_attn.ref import (attention_bwd_plain,
+                                                attention_bwd_tc_plain,
                                                 attention_lse_plain,
                                                 attention_plain)
 from repro_torch.models import layers
@@ -185,3 +188,79 @@ def test_backward_variant_rule():
     assert fab.variant_for(bf, odd, bf, bf, bf) == "simt"
     narrow = torch.zeros((B, H, S, 40), dtype=torch.bfloat16)
     assert fab.variant_for(*[narrow] * 5) == "simt"
+
+
+# the tc backward's mirror against the plain version, bf16 in and out,
+# each of dq, dk, dv: |got - want| <= rtol |want| + atol_rel (the largest
+# |want| of the three). Both sum f32 from the same bf16 inputs and round
+# once to bf16, so they differ by at most one bf16 ulp (2^-7 of the
+# value, under 1e-2); atol_rel covers f32 sums taken in another order
+# and p, dS carried as bf16 hi + lo (about 16 significant bits). The
+# card's bar for its kernels (chip_smoke's BWD_TOL, tests/test_torch_cuda)
+BF16_BWD_TOL = (1e-2, 1e-5)
+
+
+def _bf16_inputs(seed, B, Hq, Hkv, S, d):
+    return [torch.from_numpy(a).to(torch.bfloat16)
+            for a in _inputs(seed, B, Hq, Hkv, S, d)]
+
+
+def _tol_share(got, want):
+    """The largest share of ``BF16_BWD_TOL``'s allowed error over dq, dk
+    and dv (<= 1 passes)."""
+    rtol, arel = BF16_BWD_TOL
+    top = max(float(w.float().abs().max()) for w in want)
+    share = 0.0
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        g, w = g.float(), w.float()
+        share = max(share, float(((g - w).abs()
+                                  / (rtol * w.abs() + arel * top)).max()))
+    return share
+
+
+# (Hq, Hkv, S, window): MHA at a ragged S (not a multiple of the 64-row
+# tile), and GQA with a sliding window at another ragged S
+TC_MIRROR_CASES = [(4, 4, 130, None), (4, 2, 200, 40)]
+
+
+@pytest.mark.parametrize("Hq,Hkv,S,window", TC_MIRROR_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_bwd_tc_mirror_matches_plain(d, causal, Hq, Hkv, S, window):
+    """``attention_bwd_tc_plain`` (the tc kernels' arithmetic and tile
+    order) within the bf16 bar of ``attention_bwd_plain`` on the same
+    bf16 inputs and the same forward's o and lse."""
+    q, k, v, do = _bf16_inputs(S * d + Hkv, 1, Hq, Hkv, S, d)
+    kw = dict(causal=causal, window=window)
+    o, lse = attention_lse_plain(q, k, v, **kw)
+    want = attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    got = attention_bwd_tc_plain(q, k, v, o, lse, do, **kw)
+    assert _tol_share(got, want) <= 1.0
+
+
+def test_bwd_tc_mirror_needs_hi_lo():
+    """Why the kernels carry p and dS as bf16 hi + lo: a single bf16
+    (8 significant bits) misses the bar by more than an order of
+    magnitude at the train layer's width, hi + lo keeps within it."""
+    q, k, v, do = _bf16_inputs(11, 2, 8, 2, 256, 64)
+    o, lse = attention_lse_plain(q, k, v, causal=True)
+    want = attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    split = attention_bwd_tc_plain(q, k, v, o, lse, do, causal=True)
+    single = attention_bwd_tc_plain(q, k, v, o, lse, do, causal=True,
+                                    split=False)
+    assert _tol_share(split, want) <= 1.0
+    assert _tol_share(single, want) > 10.0
+
+
+def test_broadcast_views_are_copied_for_the_tensor_maps():
+    """A view with a zero stride over more than one element (a broadcast
+    gradient) is copied before the tc kernels' tensor maps describe it;
+    any other view goes as it is."""
+    B, S, H, d = 2, 16, 4, 64
+    view = torch.zeros((B, S, H, d), dtype=torch.bfloat16).transpose(1, 2)
+    assert fab._strided(view) is view
+    row = torch.arange(d, dtype=torch.float32).to(torch.bfloat16)
+    wide = row.expand(B, H, S, d)
+    got = fab._strided(wide)
+    assert got.is_contiguous() and torch.equal(got, wide)
