@@ -90,7 +90,13 @@ Phases, each printed as one JSON line (``"phase": ...``):
              prefill and selective_scan on (c)'s, each in bf16 and on f32
              copies against its plain version (within ``REC_TOL`` of the
              largest value), by events and the profiler, with the bound
-             and "library: none"; flash attention's tc and decode on
+             and "library: none", each kernel's MUFU, F2F, FP32 and LDS
+             counts from its SASS and its device time at a quarter, a
+             half and all of the path's heads or channels (its grid
+             sweep); wkv6's device time a call in the profiled decode
+             step; selective_scan's exponentials on the SFU (16 a clock
+             an SM at the card's top SM clock, ``sfu_ms``, beside the
+             bound); flash attention's tc and decode on
              phi's layer-0 inputs (d=128, GQA) beside
              ``scaled_dot_product_attention``.
 4. main   -- the serving loop at a deployment's size: ``SpatialServer``
@@ -3084,7 +3090,8 @@ def mixer_profiles(model, prompts, max_len: int, name: str) -> dict:
     every logit of a prefill and a decode step finite."""
     with torch.inference_mode():
         prof_prefill = device_ops(
-            lambda: transformer.prefill(model, prompts, max_len), top=16)
+            lambda: transformer.prefill(model, prompts, max_len), top=16,
+            keep=REC_KEEP)
         lg, cache = transformer.prefill(model, prompts, max_len)
         tok = lg[:, -1].argmax(-1, keepdim=True)
         lg2, cache = transformer.decode_step(model, cache, tok)
@@ -3093,7 +3100,8 @@ def mixer_profiles(model, prompts, max_len: int, name: str) -> dict:
               f"mixers: {name}: logits not finite")
         tok = lg2[:, -1].argmax(-1, keepdim=True)
         prof_decode = device_ops(
-            lambda: transformer.decode_step(model, cache, tok), top=16)
+            lambda: transformer.decode_step(model, cache, tok), top=16,
+            keep=REC_KEEP)
     return {"profile_prefill": prof_prefill, "profile_decode": prof_decode}
 
 
@@ -3134,16 +3142,83 @@ def rec_compare(fn, plain, args) -> dict:
             "all_close": share <= 1.0, "bar_rel": REC_TOL}
 
 
+# the recurrence kernels, kept whole in the mixers' profiles (a short
+# kernel can fall out of the top kernels)
+REC_KEEP = ("wkv6_kernel", "selective_scan_kernel")
+
+
 def path_kernel_ms(profile: dict, names, calls: int) -> dict:
     """Device ms a wrapper call from the profile of the path's own forward
     (``device_ops``): the kernels whose names hold one of ``names``,
     summed, over the ``calls`` wrapper calls the forward made. (Profiles
     of lone ctypes launches late in this script have been seen to record
     no device time; a forward's profile records them.)"""
-    hit = {k["name"]: k["ms"] for k in profile["kernels"]
+    hit = {k["name"]: k["ms"] for k in profile["kept"] or profile["kernels"]
            if any(n in k["name"] for n in names)}
     return {"ms": sum(hit.values()) / calls, "calls": calls,
             "kernels_ms": hit}
+
+
+REC_SASS_OPS = ("MUFU", "F2F", "FFMA", "FMUL", "FADD", "HMUL2", "HFMA2",
+                "LDS", "STS", "SHFL", "LDGSTS", "STL", "LDL")
+
+
+def rec_label(mangled: str) -> str:
+    """``wkv6_kernel<bf16,64>`` or ``selective_scan_kernel<bf16,full>``
+    from the mangled name of a recurrence kernel's instantiation."""
+    m = re.search(r"\d+((?:wkv6|selective_scan)_kernel\w*?)I(.+?)EEv",
+                  mangled)
+    if m is None:
+        return mangled
+    args = m.group(2).replace("13__nv_bfloat16", "bf16,")
+    args = re.sub(r"Li(\d+)E", r"\1,", args)
+    args = args.replace("Lb1E", "full,").replace("Lb0E", "any,")
+    args = re.sub(r"^f", "f32,", args)
+    return f"{m.group(1)}<{args.rstrip(',')}>"
+
+
+def recurrence_sass(lib: str) -> dict:
+    """Each kernel of library ``lib``: its count of each of
+    ``REC_SASS_OPS`` (MUFU, conversions, FP32, packed bf16, shared-memory
+    and shuffle instructions, spills) and of all instructions in its SASS
+    (``cuobjdump -sass``), keyed by :func:`rec_label`."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.lib_path(lib))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = rec_label(m.group(1))
+            out[name] = dict.fromkeys(REC_SASS_OPS, 0) | {"total": 0}
+            continue
+        m = re.search(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and name:
+            out[name]["total"] += 1
+            if m.group(1) in out[name]:
+                out[name][m.group(1)] += 1
+    check(out and all(v["total"] > 0 for v in out.values()),
+          f"build: no SASS read for {lib}: {sorted(out)}")
+    return out
+
+
+def grid_sweep(make_args, fn, sizes) -> list:
+    """A recurrence wrapper's device-bound ms a call (:func:`queued_ms`)
+    on seeded random inputs at each of ``sizes`` (``make_args(size)``
+    builds them): how its time grows with the work the card holds at once
+    (time flat in the size is a latency-bound warp, time in proportion a
+    throughput-bound card). Short profiles late in this script drop
+    kernel records, so events time it."""
+    out = []
+    for size in sizes:
+        args = make_args(size)
+        out.append({"size": size, "queued_ms": queued_ms(
+            lambda: fn(*args), reps=5)})
+        del args
+        free()
+    return out
 
 
 def recurrence_row(name: str, fn, plain, args, bytes_moved: float,
@@ -3174,9 +3249,12 @@ def recurrence_row(name: str, fn, plain, args, bytes_moved: float,
             "bound_terms": how}
 
 
-def wkv6_row(captured: dict, launches: dict, device: dict) -> dict:
+def wkv6_row(captured: dict, launches: dict, device: dict,
+             decode_device: dict) -> dict:
     """wkv6 on layer 0 of rwkv6-3b's measured prefill (and of one decode
-    step), against ``wkv6_plain``."""
+    step, with the step's device time a call in ``decode_device``),
+    against ``wkv6_plain``; its SASS counts and its device time at a
+    quarter, a half and all of the prefill's heads."""
     r, k, v, w, u, state = captured["prefill"]
     B, S, H, hd = r.shape
     bytes_moved = 3 * r.numel() * r.element_size() + 4 * (
@@ -3192,6 +3270,19 @@ def wkv6_row(captured: dict, launches: dict, device: dict) -> dict:
     check(at_decode["all_close"], f"wkv6: the decode step's call differs "
           f"from its plain version ({at_decode['tolerance_share']:.3g} of "
           f"the bar)")
+    at_decode["device_in_step"] = decode_device
+    g = torch.Generator(device=r.device).manual_seed(SEED + 59)
+
+    def sweep_args(heads):
+        rnd = [torch.randn((B, S, heads, hd), generator=g, device=r.device)
+               for _ in range(4)]
+        return (*(a.to(r.dtype) for a in rnd[:3]),
+                torch.exp(-torch.exp(rnd[3] - 1)), u[:heads].clone(),
+                torch.zeros((B, heads, hd, hd), device=r.device))
+    sweep = grid_sweep(sweep_args, wk.wkv6, (H // 4, H // 2, H))
+    for e in sweep:
+        e["heads"] = e.pop("size")
+        e["ctas"] = B * e["heads"] * hd // 32
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/csrc/wkv6.cu",
             "replaces": "src/repro/models/rwkv.py:69 (no TPU kernel: the "
@@ -3200,7 +3291,8 @@ def wkv6_row(captured: dict, launches: dict, device: dict) -> dict:
             "launches_by_path": launches, **row,
             "shape": {"B": B, "S": S, "H": H, "hd": hd,
                       "dtype": str(r.dtype)},
-            "at_decode": at_decode}
+            "at_decode": at_decode, "sass": recurrence_sass("wkv6"),
+            "grid_sweep": sweep}
 
 
 def selective_scan_row(captured: tuple, launches: dict,
@@ -3218,6 +3310,33 @@ def selective_scan_row(captured: tuple, launches: dict,
     row = recurrence_row("selective_scan", ssk.selective_scan,
                          selective_scan_plain, captured, bytes_moved, ops,
                          device)
+    # the exponentials alone on the SFU: 16 results a clock an SM (the
+    # throughput table NVIDIA gives for compute capability 9.0) at the
+    # card's highest SM clock; beside the bound, not in it
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dt.device).multi_processor_count
+    row["bound_terms"]["sfu_ms"] = B * S * di * ds / (16 * sms * mhz * 1e6) \
+        * 1e3
+    row["bound_terms"]["sfu_terms"] = {"exponentials": B * S * di * ds,
+                                       "per_sm_per_clock": 16, "sms": sms,
+                                       "clocks_max_sm_mhz": mhz}
+    g = torch.Generator(device=dt.device).manual_seed(SEED + 61)
+
+    def sweep_args(width):
+        rnd = [torch.randn(shape, generator=g, device=dt.device) for shape in
+               ((B, S, width), (B, S, width), (B, S, ds), (B, S, ds))]
+        return (F.softplus(rnd[0] - 2).to(dt.dtype), rnd[1].to(dt.dtype),
+                A[:width].clone(), rnd[2].to(dt.dtype), rnd[3].to(dt.dtype),
+                D_skip[:width].clone(),
+                torch.zeros((B, width, ds), device=dt.device))
+    sweep = grid_sweep(sweep_args, ssk.selective_scan,
+                       (di // 4, di // 2, di))
+    for e in sweep:
+        e["d_inner"] = e.pop("size")
+        e["ctas"] = B * -(-e["d_inner"] // 128)
     return {"name": "selective_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/selective_scan.cu",
             "replaces": "src/repro/models/ssm.py:21 (no TPU kernel: "
@@ -3226,7 +3345,8 @@ def selective_scan_row(captured: tuple, launches: dict,
             "launches": launches["mixers-jamba-layer"],
             "launches_by_path": launches, **row,
             "shape": {"B": B, "S": S, "d_inner": di, "d_state": ds,
-                      "dtype": str(dt.dtype)}}
+                      "dtype": str(dt.dtype)},
+            "sass": recurrence_sass("selective_scan"), "grid_sweep": sweep}
 
 
 def phi_part(dev) -> tuple[dict, dict]:
@@ -3357,7 +3477,8 @@ def rwkv_part(dev) -> tuple[dict, dict]:
     launches = {"mixers-rwkv": serve["launches"]["wkv6"],
                 "mixers-rwkv-f32": agree["launches"]["wkv6"]}
     row = wkv6_row(captured, launches, path_kernel_ms(
-        profiles["profile_prefill"], ("wkv6_kernel",), L))
+        profiles["profile_prefill"], ("wkv6_kernel",), L), path_kernel_ms(
+        profiles["profile_decode"], ("wkv6_kernel",), L))
     del captured
     free()
     out = {"arch": MIX_RWKV, "dtype": cfg.act_dtype, "layers": L,
@@ -3415,7 +3536,7 @@ def mamba_part(dev) -> tuple[dict, dict]:
         t.zero_()
     with torch.inference_mode():
         profile = device_ops(lambda: ssm.mamba_block(x, p, cfg, cache),
-                             top=16)
+                             top=16, keep=REC_KEEP)
     captured = probe.captured["prefill"]
     del y, yt, cache, steps_x, probe
     free()
@@ -3560,7 +3681,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "kernels": {k: v["seconds"] for k, v in report.items()},
           "flash_attn": flash_build, "flash_attn_bwd": bwd_build,
-          **{k: ptxas_usage(report[k]["ptxas"])
+          **{k: ptxas_usage(report[k]["ptxas"], rec_label)
              for k in ("wkv6", "selective_scan")}})
 
     lm, flash_row = lm_phase(dev)

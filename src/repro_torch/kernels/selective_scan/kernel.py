@@ -65,6 +65,14 @@ def _check(dt, xc, A, Bm, Cm, D_skip, h0):
         raise ValueError(f"selective_scan: d_state {ds} not in 1..{MAX_STATE}")
 
 
+def _aligned(t):
+    """``t`` contiguous with a 16-byte aligned base (the kernel stages rows
+    with 16-byte cp.async where their widths allow, and reads the state
+    and ``A`` as float4)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def selective_scan(dt, xc, A, Bm, Cm, D_skip, h0, *, out_state=None):
     """:func:`ref.selective_scan_plain`'s function: ``(y, h_last)``. On the
     card ``out_state`` (B, di, ds) f32, when given, receives h_last (it
@@ -89,11 +97,12 @@ def selective_scan(dt, xc, A, Bm, Cm, D_skip, h0, *, out_state=None):
         out_state = torch.empty((B, di, ds), dtype=torch.float32,
                                 device=dt.device)
     elif (tuple(out_state.shape) != (B, di, ds)
-          or out_state.dtype != torch.float32 or not out_state.is_contiguous()):
-        raise ValueError("selective_scan: out_state must be a contiguous "
-                         f"({B}, {di}, {ds}) float32 tensor")
-    args = [t.contiguous() for t in (dt, xc, A, Bm, Cm, D_skip)]
-    h0 = h0 if h0.data_ptr() == out_state.data_ptr() else h0.contiguous()
+          or out_state.dtype != torch.float32 or not out_state.is_contiguous()
+          or out_state.data_ptr() % 16):
+        raise ValueError("selective_scan: out_state must be a contiguous, "
+                         f"16-byte aligned ({B}, {di}, {ds}) float32 tensor")
+    args = [_aligned(t) for t in (dt, xc, A, Bm, Cm, D_skip)]
+    h0 = h0 if h0.data_ptr() == out_state.data_ptr() else _aligned(h0)
     y = torch.empty((B, S, di), dtype=torch.float32, device=dt.device)
     stream = torch.cuda.current_stream(dt.device).cuda_stream
     err = _fn()(*(t.data_ptr() for t in args), h0.data_ptr(), y.data_ptr(),

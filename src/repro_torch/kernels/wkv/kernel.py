@@ -63,6 +63,13 @@ def _check(r, k, v, w, u, state):
         raise ValueError(f"wkv6: head dim {hd} not one of {HEAD_DIMS}")
 
 
+def _aligned(t):
+    """``t`` contiguous with a 16-byte aligned base (the kernel copies rows
+    with 16-byte cp.async and reads the state as float4)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def wkv6(r, k, v, w, u, state, *, out_state=None):
     """:func:`ref.wkv6_plain`'s function: ``(y, state)``. On the card
     ``out_state`` (B, H, hd, hd) f32, when given, receives the last state
@@ -87,12 +94,13 @@ def wkv6(r, k, v, w, u, state, *, out_state=None):
         out_state = torch.empty((B, H, hd, hd), dtype=torch.float32,
                                 device=r.device)
     elif (tuple(out_state.shape) != (B, H, hd, hd)
-          or out_state.dtype != torch.float32 or not out_state.is_contiguous()):
-        raise ValueError(f"wkv6: out_state must be a contiguous ({B}, {H}, "
-                         f"{hd}, {hd}) float32 tensor")
-    args = [t.contiguous() for t in (r, k, v, w, u)]
+          or out_state.dtype != torch.float32 or not out_state.is_contiguous()
+          or out_state.data_ptr() % 16):
+        raise ValueError(f"wkv6: out_state must be a contiguous, 16-byte "
+                         f"aligned ({B}, {H}, {hd}, {hd}) float32 tensor")
+    args = [_aligned(t) for t in (r, k, v, w, u)]
     state = (state if state.data_ptr() == out_state.data_ptr()
-             else state.contiguous())
+             else _aligned(state))
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = _fn()(*(t.data_ptr() for t in args), state.data_ptr(), y.data_ptr(),

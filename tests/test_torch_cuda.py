@@ -10,6 +10,8 @@ plain version (each gradient within one bf16 ulp, or 1e-5 in f32, plus
 1e-5 of its largest) with a smoke model's training gradients on the card
 equal to the CPU's; the wkv6 and selective-scan kernels against their
 plain versions (outputs and states within 2e-5 of the largest value),
+their CPU mirrors (1e-6), calls that carry the state (bit for bit) and a
+bit-exact check of the scan's bf16 ``db``,
 and smoke phi3.5-moe, jamba and rwkv6 models on the card against the
 same weights on the CPU.
 
@@ -1153,6 +1155,131 @@ def test_selective_scan_kernel_matches_plain(cuda, S, di, ds, dtype):
     y, h = ssk.selective_scan(*args[:-1], state, out_state=state)
     assert h is state
     _rec_close((y, state), got)
+
+
+def _split_calls(fn, args, seq, cut):
+    """``fn`` on tokens [0, cut) and then [cut, S) carrying the state (the
+    last argument), against one call: outputs and state bit for bit."""
+    y, st = fn(*args)
+    first = [a[:, :cut] if i in seq else a for i, a in enumerate(args)]
+    y1, s1 = fn(*first)
+    rest = [a[:, cut:] if i in seq else a for i, a in enumerate(args)]
+    y2, s2 = fn(*rest[:-1], s1)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, st)
+
+
+@pytest.mark.parametrize("S,cut", [(29, 13), (29, 28)])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_carries_state_across_calls(cuda, S, cut, hd, dtype):
+    """Split inside the kernel's first 16-token stage, and a last call of
+    one token (the decode kernel, whose sums run in the staged kernel's
+    order)."""
+    from repro_torch.kernels.wkv import kernel as wk
+    _split_calls(wk.wkv6, _wkv_inputs(cuda, 2, S, 3, hd, dtype, hd + cut),
+                 (0, 1, 2, 3), cut)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_is_its_split_mirror(cuda, hd, dtype):
+    """The kernel against ``ref.wkv6_split_plain`` (its decomposition and
+    order of sums, FMAs in f64 rounded once) on CPU copies: the same bits
+    but for a rare double rounding of an emulated FMA (1e-6 of the
+    largest value)."""
+    from repro_torch.kernels.wkv import kernel as wk
+    from repro_torch.kernels.wkv.ref import wkv6_split_plain
+    args = _wkv_inputs(cuda, 2, 37, 3, hd, dtype, 5)
+    got = wk.wkv6(*args)
+    want = wkv6_split_plain(*(a.cpu() for a in args))
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-6 * float(
+            w.abs().max())
+
+
+@pytest.mark.parametrize("w_lo", [1e-6, 1e-2])
+def test_wkv6_kernel_at_extreme_decays(cuda, w_lo):
+    """Decays near 0 and near 1 (each key drawn from both), 300 tokens."""
+    from repro_torch.kernels.wkv import kernel as wk
+    from repro_torch.kernels.wkv.ref import wkv6_plain
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 2, 300, 3, 64, torch.bfloat16, 7)
+    pick = torch.rand(w.shape, generator=torch.Generator(
+        device=cuda).manual_seed(8), device=cuda) < 0.5
+    w = torch.where(pick, torch.full_like(w, w_lo),
+                    torch.full_like(w, 1 - w_lo))
+    args = (r, k, v, w, u, s0)
+    _rec_close(wk.wkv6(*args), wkv6_plain(*args))
+
+
+@pytest.mark.parametrize("B,H,S", [(1, 1, 33), (3, 1, 17)])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_wkv6_kernel_at_few_heads(cuda, B, H, S, hd):
+    """B H heads that fill few CTAs, S not a multiple of the stage."""
+    from repro_torch.kernels.wkv import kernel as wk
+    from repro_torch.kernels.wkv.ref import wkv6_plain
+    args = _wkv_inputs(cuda, B, S, H, hd, torch.bfloat16, B + H + S)
+    _rec_close(wk.wkv6(*args), wkv6_plain(*args))
+
+
+@pytest.mark.parametrize("S,cut", [(30, 11), (30, 29)])
+@pytest.mark.parametrize("di,ds", [(256, 16), (131, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_carries_state_across_calls(cuda, S, cut, di,
+                                                          ds, dtype):
+    """Split inside the first 16-token stage, and a last call of one
+    token; d_inner 131 takes the unaligned staging and an odd channel."""
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    _split_calls(ssk.selective_scan,
+                 _scan_inputs(cuda, 2, S, di, ds, dtype, di + cut),
+                 (0, 1, 3, 4), cut)
+
+
+@pytest.mark.parametrize("di,ds", [(256, 16), (300, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_is_its_ex2_mirror(cuda, di, ds, dtype):
+    """The kernel against ``ref.selective_scan_ex2_plain`` (exp2 of the
+    pre-scaled A, db's roundings, the FMAs) on CPU copies, within 1e-6 of
+    the largest value (ex2.approx's last bits)."""
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_ex2_plain)
+    args = _scan_inputs(cuda, 2, 37, di, ds, dtype, 9)
+    got = ssk.selective_scan(*args)
+    want = selective_scan_ex2_plain(*(a.cpu() for a in args))
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-6 * float(
+            w.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_db_is_the_plain_versions(cuda, dtype):
+    """A so negative that da is 0, C one-hot on state 5, D = 0, h0 = 0: y
+    is db, and the kernel's (bf16: two __hmul2 roundings) equals
+    ``selective_scan_plain``'s bit for bit."""
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.selective_scan.ref import selective_scan_plain
+    dt, xc, A, Bm, Cm, D, h0 = _scan_inputs(cuda, 2, 40, 256, 16, dtype, 4)
+    A = torch.full_like(A, -1e6)
+    Cm = torch.zeros_like(Cm)
+    Cm[..., 5] = 1
+    args = (dt, xc, A, Bm, Cm, torch.zeros_like(D), torch.zeros_like(h0))
+    y, _ = ssk.selective_scan(*args)
+    want, _ = selective_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("di", [72, 200, 131])
+def test_selective_scan_kernel_at_partial_tiles(cuda, di):
+    """d_inner that does not fill the CTAs' 128 channels, and dt large
+    enough that da underflows on the later states."""
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.selective_scan.ref import selective_scan_plain
+    dt, xc, A, Bm, Cm, D, h0 = _scan_inputs(cuda, 2, 21, di, 16,
+                                            torch.bfloat16, di)
+    args = ((dt.float() * 40 + 20).to(dt.dtype), xc, A, Bm, Cm, D, h0)
+    _rec_close(ssk.selective_scan(*args), selective_scan_plain(*args))
 
 
 def test_recurrence_wrappers_raise(cuda):

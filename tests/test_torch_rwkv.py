@@ -22,12 +22,15 @@ import repro.configs as jconfigs
 from repro.models import rwkv as jrwkv
 from repro_torch import configs
 from repro_torch.kernels.wkv import kernel as wk
-from repro_torch.kernels.wkv.ref import wkv6_plain
+from repro_torch.kernels.wkv.ref import wkv6_plain, wkv6_split_plain
 from repro_torch.models import rwkv
 
 torch.set_num_threads(1)
 
 REL = 1e-5
+# the CUDA kernel's bar against the plain version (chip_smoke.REC_TOL,
+# tests/test_torch_cuda.py:REC_REL), held here by its CPU mirror
+REC_TOL = 2e-5
 ARCH = "rwkv6-3b"
 
 
@@ -71,6 +74,63 @@ def test_wkv6_plain_matches_reference(S):
     wy, ws = _reference_wkv(*map(jnp.asarray, (r, k, v, w, u, s0)))
     _close(y.numpy(), wy)
     _close(s.numpy(), ws)
+
+
+def _wkv_numpy(B, S, H, hd, seed, w_lo=None):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, S, H, hd)).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(rng.standard_normal((B, S, H, hd)) - 1))
+    if w_lo is not None:   # decays near 0 and near 1
+        w = np.where(rng.uniform(size=w.shape) < 0.5, w_lo,
+                     1 - w_lo)
+    u = rng.standard_normal((H, hd)) * 0.1
+    s0 = rng.standard_normal((B, H, hd, hd))
+    return [a.astype(np.float32) for a in (r, k, v, w, u, s0)]
+
+
+@pytest.mark.parametrize("S", [1, 37])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_split_mirror_matches_plain_and_reference(S, hd, dtype):
+    """The kernel's decomposition (bonus factored out, keys in groups of
+    8, the groups' butterfly sum, ``fma(w, s, k v)``) against the plain
+    version and the reference's scan on the same inputs, within
+    ``REC_TOL`` of the largest value; S = 37 is not a multiple of the
+    kernel's 16-token stage."""
+    args = _wkv_numpy(2, S, 3, hd, S + hd)
+    t = [_t(a) for a in args]
+    t[:3] = [a.to(dtype) for a in t[:3]]
+    y, s = wkv6_split_plain(*t)
+    py, ps = wkv6_plain(*t)
+    _close(y.numpy(), py.numpy(), REC_TOL)
+    _close(s.numpy(), ps.numpy(), REC_TOL)
+    # the reference on the same (rounded) values
+    j = [jnp.asarray(a.float().numpy()) for a in t]
+    wy, ws = _reference_wkv(*j)
+    _close(y.numpy(), wy, REC_TOL)
+    _close(s.numpy(), ws, REC_TOL)
+
+
+@pytest.mark.parametrize("w_lo", [1e-6, 1e-2])
+def test_wkv6_split_mirror_at_extreme_decays(w_lo):
+    """Decays near 0 and near 1 (each token's keys drawn from both)."""
+    t = [_t(a) for a in _wkv_numpy(2, 21, 2, 64, 5, w_lo)]
+    y, s = wkv6_split_plain(*t)
+    py, ps = wkv6_plain(*t)
+    _close(y.numpy(), py.numpy(), REC_TOL)
+    _close(s.numpy(), ps.numpy(), REC_TOL)
+
+
+def test_wkv6_split_mirror_carries_the_state():
+    """Two calls that carry the state, split at token 13 (inside the
+    kernel's first 16-token stage), give one call's outputs bit for
+    bit."""
+    t = [_t(a) for a in _wkv_numpy(1, 29, 2, 32, 8)]
+    y, s = wkv6_split_plain(*t)
+    y1, s1 = wkv6_split_plain(*[a[:, :13] for a in t[:4]], *t[4:])
+    y2, s2 = wkv6_split_plain(*[a[:, 13:] for a in t[:4]], t[4], s1)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, s)
 
 
 def test_wkv6_wrapper_takes_the_plain_version_on_the_cpu():

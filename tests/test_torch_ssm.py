@@ -24,12 +24,16 @@ import repro.configs as jconfigs
 from repro.models import ssm as jssm
 from repro_torch import configs
 from repro_torch.kernels.selective_scan import kernel as ssk
-from repro_torch.kernels.selective_scan.ref import selective_scan_plain
+from repro_torch.kernels.selective_scan.ref import (
+    selective_scan_ex2_plain, selective_scan_plain)
 from repro_torch.models import ssm
 
 torch.set_num_threads(1)
 
 REL = 1e-5
+# the CUDA kernel's bar against the plain version (chip_smoke.REC_TOL,
+# tests/test_torch_cuda.py:REC_REL), held here by its CPU mirror
+REC_TOL = 2e-5
 ARCH = "jamba-1.5-large-398b"
 
 
@@ -99,6 +103,89 @@ def test_selective_scan_bf16_rounds_db_as_the_reference():
     ref_y = np.asarray(ref_y)
     assert np.abs(y32.numpy() - ref_y).max() > \
         10 * REL * np.abs(ref_y).max()
+
+
+def _bf16(a):
+    """numpy f32 -> the torch bf16 tensor and the jnp bf16 array of the
+    same values."""
+    t = _t(a).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+
+@pytest.mark.parametrize("S", [1, 37])
+@pytest.mark.parametrize("di,ds", [(24, 4), (40, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_selective_scan_ex2_mirror_matches_plain_and_reference(S, di, ds,
+                                                               dtype):
+    """The kernel's arithmetic (exp2 of the pre-scaled A, db's two bf16
+    roundings, the FMAs) against the plain version and the reference's
+    ``da``/``db`` and ``_selective_scan`` on the same inputs, within
+    ``REC_TOL`` of the largest value; S = 37 is not a multiple of the
+    kernel's 16-token stage."""
+    dt, xc, A, Bm, Cm, D, h0 = _scan_inputs(2, S, di, ds, S + di)
+    if dtype == "bfloat16":
+        (tdt, jdt), (txc, jxc), (tB, jB), (tC, jC) = map(_bf16,
+                                                         (dt, xc, Bm, Cm))
+    else:
+        tdt, txc, tB, tC = map(_t, (dt, xc, Bm, Cm))
+        jdt, jxc, jB, jC = map(jnp.asarray, (dt, xc, Bm, Cm))
+    args = (tdt, txc, _t(A), tB, tC, _t(D), _t(h0))
+    y, h = selective_scan_ex2_plain(*args)
+    py, ph = selective_scan_plain(*args)
+    _close(y.numpy(), py.numpy(), REC_TOL)
+    _close(h.numpy(), ph.numpy(), REC_TOL)
+    wy, wh = _reference_scan(jdt, jxc, jnp.asarray(A), jB, jC,
+                             jnp.asarray(D), jnp.asarray(h0))
+    _close(y.numpy(), wy, REC_TOL)
+    _close(h.numpy(), wh, REC_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_ex2_mirror_db_is_the_plain_versions(dtype):
+    """With A so negative that da is 0, C one-hot on one state, D = 0 and
+    h0 = 0, y is db: the mirror's equals the plain version's bit for bit
+    (the two bf16 roundings are the same), and in bf16 it is not the f32
+    product's."""
+    dt, xc, A, Bm, Cm, D, h0 = _scan_inputs(2, 9, 32, 16, 4)
+    A = np.full_like(A, -1e6)
+    Cm = np.zeros_like(Cm)
+    Cm[..., 5] = 1
+    args = [_t(dt).to(dtype), _t(xc).to(dtype), _t(A), _t(Bm).to(dtype),
+            _t(Cm).to(dtype), torch.zeros(32), torch.zeros(2, 32, 16)]
+    y, _ = selective_scan_ex2_plain(*args)
+    py, _ = selective_scan_plain(*args)
+    assert torch.equal(y, py)
+    f32 = (args[0].float() * args[3].float()[..., 5:6] * args[1].float())
+    assert torch.equal(py == f32, torch.ones_like(py, dtype=torch.bool)) \
+        == (dtype == torch.float32)
+
+
+def test_selective_scan_ex2_mirror_at_an_underflowing_decay():
+    """dt large enough that da underflows to 0 on some states: the mirror
+    flushes da below f32's smallest normal, as ``ex2.approx.ftz`` does, and
+    stays within the bar."""
+    dt, xc, A, Bm, Cm, D, h0 = _scan_inputs(2, 21, 24, 16, 6)
+    dt = dt * 40 + 20     # dt A down to ~ -1,500
+    args = list(map(_t, (dt, xc, A, Bm, Cm, D, h0)))
+    y, h = selective_scan_ex2_plain(*args)
+    py, ph = selective_scan_plain(*args)
+    _close(y.numpy(), py.numpy(), REC_TOL)
+    _close(h.numpy(), ph.numpy(), REC_TOL)
+
+
+def test_selective_scan_ex2_mirror_carries_the_state():
+    """Two calls that carry the state, split at token 11 (inside the
+    kernel's first 16-token stage), give one call's outputs bit for
+    bit."""
+    args = [_t(a) for a in _scan_inputs(1, 30, 16, 16, 2)]
+    for i in (0, 1, 3, 4):
+        args[i] = args[i].to(torch.bfloat16)
+    y, h = selective_scan_ex2_plain(*args)
+    cut = [a[:, :11] if i in (0, 1, 3, 4) else a for i, a in enumerate(args)]
+    y1, h1 = selective_scan_ex2_plain(*cut)
+    rest = [a[:, 11:] if i in (0, 1, 3, 4) else a for i, a in enumerate(args)]
+    y2, h2 = selective_scan_ex2_plain(*rest[:-1], h1)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
 
 
 def test_selective_scan_wrapper_takes_the_plain_version_on_the_cpu():
