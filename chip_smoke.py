@@ -288,12 +288,13 @@ from repro_torch.kernels.knn import ref as kref  # noqa: E402
 from repro_torch.kernels.morton import kernel as mk  # noqa: E402
 from repro_torch.kernels.selective_scan import kernel as ssk  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
-    selective_scan_plain)
+    selective_scan_bwd_plain, selective_scan_plain)
 from repro_torch.kernels.sieve import kernel as sk  # noqa: E402
 from repro_torch.kernels.sieve import ops as sieve_ops  # noqa: E402
 from repro_torch.kernels.sieve import ref as sieve_ref  # noqa: E402
 from repro_torch.kernels.wkv import kernel as wk  # noqa: E402
-from repro_torch.kernels.wkv.ref import wkv6_plain  # noqa: E402
+from repro_torch.kernels.wkv.ref import (  # noqa: E402
+    wkv6_bwd_plain, wkv6_plain)
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import ssm, transformer  # noqa: E402
 from repro_torch.train import step as train_lib  # noqa: E402
@@ -426,8 +427,26 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+class KernelCount:
+    """One kernel of a module that counts several, read as ``KERNELS``
+    reads a module (``launch_count()``, ``reset_launch_count()``)."""
+
+    def __init__(self, mod, kernel: str):
+        self.mod, self.kernel = mod, kernel
+
+    def launch_count(self) -> int:
+        return self.mod.launch_count(self.kernel)
+
+    def reset_launch_count(self) -> None:
+        self.mod.reset_launch_count()
+
+
 KERNELS = {**driver.KERNELS, "flash_attn": fak, "flash_attn_bwd": fab,
-           "wkv6": wk, "selective_scan": ssk}
+           "wkv6": wk, "selective_scan": ssk,
+           "wkv6_bwd": KernelCount(wk, "bwd"),
+           "wkv6_bwd_reduce": KernelCount(wk, "bwd_reduce"),
+           "selective_scan_bwd": KernelCount(ssk, "bwd"),
+           "selective_scan_bwd_reduce": KernelCount(ssk, "bwd_reduce")}
 
 
 def reset_counts() -> None:
@@ -3164,12 +3183,14 @@ REC_SASS_OPS = ("MUFU", "F2F", "FFMA", "FMUL", "FADD", "HMUL2", "HFMA2",
 
 
 def rec_label(mangled: str) -> str:
-    """``wkv6_kernel<bf16,64>`` or ``selective_scan_kernel<bf16,full>``
-    from the mangled name of a recurrence kernel's instantiation."""
-    m = re.search(r"\d+((?:wkv6|selective_scan)_kernel\w*?)I(.+?)EEv",
+    """``wkv6_kernel<bf16,64>``, ``selective_scan_kernel<bf16,full>`` or
+    ``wkv6_bwd_reduce_kernel`` from the mangled name of a recurrence
+    kernel (forward or backward) or of its instantiation."""
+    m = re.search(r"\d+((?:wkv6|selective_scan)\w*?_kernel\w*?)I(.+?)EEv",
                   mangled)
     if m is None:
-        return mangled
+        m = re.search(r"\d+((?:wkv6|selective_scan)\w*?_kernel)E", mangled)
+        return mangled if m is None else m.group(1)
     args = m.group(2).replace("13__nv_bfloat16", "bf16,")
     args = re.sub(r"Li(\d+)E", r"\1,", args)
     args = args.replace("Lb1E", "full,").replace("Lb0E", "any,")
@@ -3650,6 +3671,432 @@ def mixers_phase(dev) -> tuple[dict, list, dict]:
 
 
 # ---------------------------------------------------------------------------
+# the mixers' training: rwkv6-3b and jamba's Mamba layer through the
+# recurrence kernels' backward
+# ---------------------------------------------------------------------------
+
+# rwkv6-3b at full width and depth, and jamba-1.5-large at full width cut
+# to one Mamba and one attention layer ("ma", each with its dense SwiGLU
+# FFN: the whole model is 398 B parameters, and 16 experts of d_ff 24,576
+# do not fit one card): bf16, remat "dots", the train phase's 4 x 2048
+# tokens a step, 1 warm-up and 4 measured steps
+TM_RWKV = "rwkv6-3b"
+TM_JAMBA = "jamba-1.5-large-398b"
+TM_JAMBA_CUTS = {"pattern": "ma", "n_layers": 2, "moe": None}
+TM_WARMUP, TM_STEPS = 1, 4
+# a backward kernel against its plain backward, each output: |got - want|
+# <= ulp |want| + REC_TOL (largest |want|), ulp 0 for f32 outputs. Both
+# compute in f32 from the same inputs (the kernel's exponentials on the
+# SFU, its sums in another order); a bf16 output is that f32 value rounded
+# once on each side, so the two may round one bf16 ulp apart (2^-7 of the
+# value at most)
+TM_BF16_ULP = 2.0 ** -7
+# the backward's least work a (token, key, value) of wkv6: the recompute of
+# the state (k v, w s, +), dr's r... product and sum, dw's, dk's and dv's
+# products and sums, G's update (w G, r dy, +): 14 operations
+WKV_BWD_OPS = 14
+# a (token, channel, state) of the selective scan's backward: dt A, its
+# exponential, db's two products, a h + db (2) to recompute h; g = dy C +
+# a g (3); dlog a = g a h (2); its A term, g B and dt x terms of ddt, dA
+# and dB (2 each); dC's product and sum (2): 20 operations
+SCAN_BWD_OPS = 20
+# the launcher at the smoke config (it forces f32): 20 steps then a
+# --resume; lr 3e-3 as the README's CPU line (uniform random tokens make
+# the launcher's loss-decrease check a coin flip at the default lr)
+TM_CLI = ["--arch", TM_RWKV, "--smoke", "--steps", "20", "--batch", "4",
+          "--seq", "64", "--lr", "3e-3"]
+# the smoke gradient checks on the card against the CPU, as the train
+# phase's: the loss to 1e-5 and each leaf to TRAIN_CHECK_REL of its largest
+TM_SMOKE_B, TM_SMOKE_S = 2, 48
+
+
+def rec_bwd_compare(fn, plain, args) -> dict:
+    """A recurrence backward's gradients against its plain backward's on
+    ``args``: each output within ``TM_BF16_ULP`` (bf16 outputs) of its
+    value plus ``REC_TOL`` of its largest |value|; the share of that bar
+    used (<= 1 passes). A second call must give the first's bits."""
+    got, want = fn(*args), plain(*args)
+    again = fn(*args)
+    sync()
+    per = []
+    for g, w in zip(got, want):
+        g32, w32 = g.float(), w.float()
+        top = float(w32.abs().max())
+        ulp = TM_BF16_ULP if w.dtype == torch.bfloat16 else 0.0
+        excess = float(((g32 - w32).abs() - ulp * w32.abs()).max())
+        per.append({"max_abs_err": float((g32 - w32).abs().max()),
+                    "max_abs_value": top, "dtype": str(w.dtype),
+                    "share": max(excess, 0.0) / (REC_TOL * max(top, 1e-30))})
+    share = max(p["share"] for p in per)
+    return {"max_abs_err": max(p["max_abs_err"] for p in per),
+            "by_output": per, "tolerance_share": share,
+            "all_close": share <= 1.0,
+            "repeat_bit_equal": all(torch.equal(a, b)
+                                    for a, b in zip(got, again)),
+            "bar": {"rel_of_largest": REC_TOL, "bf16_ulp_of_value":
+                    TM_BF16_ULP}}
+
+
+def rec_bwd_row(name: str, fn, plain, args, names, bytes_moved: float,
+                ops: float, launches: dict, device: dict, lib: str,
+                ptxas: str) -> dict:
+    """A backward kernel's row on ``args`` (layer 0's inputs and output
+    gradient from a measured training step): against its plain backward
+    in the path's types and on f32 copies, bit-equal repeats, its time by
+    events and device-bound by ``queued_ms``, its device time in the
+    profiled step (``device``), the plain backward's time, the bound, its
+    registers and spills and its SASS counts. ``launches`` holds each of
+    its kernels' launches on the main path, the backward's first."""
+    cmp = rec_bwd_compare(fn, plain, args)
+    args32 = tuple(a.float() for a in args)
+    cmp32 = rec_bwd_compare(fn, plain, args32)
+    del args32
+    free()
+    for c in (cmp, cmp32):
+        c["by_output"] = dict(zip(names, c["by_output"]))
+    ok = (cmp["all_close"] and cmp32["all_close"] and cmp["repeat_bit_equal"]
+          and cmp32["repeat_bit_equal"])
+    check(ok, f"{name}: kernel differs from its plain backward beyond the "
+          f"bar (share, {args[0].dtype} / f32): "
+          f"{cmp['tolerance_share']:.3g} / {cmp32['tolerance_share']:.3g}, "
+          f"or a repeat gave other bits ({cmp['repeat_bit_equal']} / "
+          f"{cmp32['repeat_bit_equal']})")
+    ms = time_ms(lambda: fn(*args), reps=3)
+    q_ms = queued_ms(lambda: fn(*args), reps=3)
+    plain_ms = time_ms(lambda: plain(*args), reps=1, warmup=0)
+    b_ms, by, how = bound(bytes_moved, ops)
+    return {**cmp, "all_close": ok, "f32_copy": cmp32, "ms": ms,
+            "queued_ms": q_ms, "device_in_step": device,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "bound_terms": how, "bound_share": b_ms / q_ms,
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes it",
+            "timed": "ms: back-to-back calls by CUDA events; queued_ms: "
+                     "calls queued behind a spin kernel (device-bound); "
+                     "device_in_step: the profiled training step's kernel "
+                     "time a call (torch.profiler)",
+            "launches": next(iter(launches.values())),
+            "launches_by_kernel": launches,
+            "ptxas": ptxas_usage(ptxas, rec_label),
+            "sass": recurrence_sass(lib)}
+
+
+def wkv6_bwd_row(captured: tuple, launches: dict, device: dict,
+                 ptxas: str) -> dict:
+    r, k, v, w, u, state, dy = captured
+    B, S, H, hd = r.shape
+    N, es = r.numel(), r.element_size()
+    # in: r, k, v, w, u, state, dy; out: dr, dk, dv, dw, du, dstate
+    bytes_moved = 6 * N * es + 4 * (3 * N + 2 * u.numel()
+                                    + 2 * state.numel())
+    ops = WKV_BWD_OPS * B * S * H * hd * hd
+    row = rec_bwd_row("wkv6_bwd", wk.wkv6_bwd, wkv6_bwd_plain, captured,
+                      ("dr", "dk", "dv", "dw", "du", "dstate"), bytes_moved,
+                      ops, launches, device, "wkv6_bwd", ptxas)
+    return {"name": "wkv6_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+            "replaces": "src/repro/models/rwkv.py:69 (no TPU kernel: XLA's "
+                        "autodiff of the lax.scan of time_mix's step, "
+                        "rwkv.py:58-69)",
+            **row, "shape": {"B": B, "S": S, "H": H, "hd": hd,
+                             "dtype": str(r.dtype)}}
+
+
+def selective_scan_bwd_row(captured: tuple, launches: dict, device: dict,
+                           ptxas: str) -> dict:
+    dt, xc, A, Bm, Cm, D_skip, h0, dy = captured
+    B, S, di = dt.shape
+    ds = A.shape[1]
+    es = dt.element_size()
+    # in: dt, xc, Bm, Cm, A, D, h0, dy; out: the gradients of each
+    bytes_moved = 2 * es * (2 * dt.numel() + 2 * Bm.numel()) + 4 * (
+        2 * (A.numel() + D_skip.numel() + h0.numel()) + dy.numel())
+    ops = SCAN_BWD_OPS * B * S * di * ds
+    row = rec_bwd_row("selective_scan_bwd", ssk.selective_scan_bwd,
+                      selective_scan_bwd_plain, captured,
+                      ("ddt", "dxc", "dA", "dBm", "dCm", "dD", "dh0"),
+                      bytes_moved, ops, launches, device,
+                      "selective_scan_bwd", ptxas)
+    # the function's exponentials alone on the SFU (one a (token, channel,
+    # state)): 16 results a clock an SM at the card's highest SM clock;
+    # beside the bound, not in it
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dt.device).multi_processor_count
+    row["bound_terms"]["sfu_ms"] = B * S * di * ds / (16 * sms * mhz * 1e6) \
+        * 1e3
+    row["bound_terms"]["sfu_terms"] = {"exponentials": B * S * di * ds,
+                                       "per_sm_per_clock": 16, "sms": sms,
+                                       "clocks_max_sm_mhz": mhz}
+    return {"name": "selective_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/selective_scan_bwd.cu",
+            "replaces": "src/repro/models/ssm.py:21 (no TPU kernel: XLA's "
+                        "autodiff of _selective_scan and the C contraction "
+                        "of mamba_block, ssm.py:21-89)",
+            **row, "shape": {"B": B, "S": S, "d_inner": di, "d_state": ds,
+                             "dtype": str(dt.dtype)}}
+
+
+def train_mixer_run(name: str, cfg, dev, mod, want: dict,
+                    keep: tuple) -> tuple[dict, tuple]:
+    """``TM_WARMUP`` + ``TM_STEPS`` bf16 ``make_train_step`` steps of
+    ``cfg`` at 4 x 2048 tokens: every loss finite, every measured step's
+    launches (``counts``, flash-attention variants) equal to ``want`` and
+    0 elsewhere. Then one step with ``mod._backward``'s inputs kept (the
+    last call of a step: layer 0's) and one profiled step. Returns the
+    run's line and the kept inputs."""
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tcfg = train_lib.TrainCfg()
+    model, opt = train_lib.init_train_state(SEED, cfg, tcfg, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    step_fn = train_lib.make_train_step(cfg, tcfg)
+    batches = []
+    for s in range(TM_WARMUP + TM_STEPS):
+        toks, labels = lm_batch(SEED, s, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab,
+                                device=dev)
+        batches.append({"tokens": toks, "labels": labels})
+    losses, step_s, per_step = [], [], []
+    for b in batches[:TM_WARMUP]:
+        model, opt, m = step_fn(model, opt, b)
+        losses.append(float(m["loss"]))
+    sync()
+    reset_counts()
+
+    def now():
+        return {**counts(), **variant_counts(), **bwd_variants()}
+    for b in batches[TM_WARMUP:]:
+        before = now()
+        sync()
+        t0 = time.perf_counter()
+        model, opt, m = step_fn(model, opt, b)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        after = now()
+        per_step.append({k: after[k] - before[k] for k in after})
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(x) for x in losses),
+          f"train-mixers: {name}: a loss is not finite: {losses}")
+    bad = [p for p in per_step if any(n != want.get(k, 0)
+                                      for k, n in p.items())]
+    check(not bad, f"train-mixers: {name}: a step launched "
+          f"{ {k: n for k, n in bad[0].items() if n} if bad else {} }, "
+          f"not {want}")
+    captured = []
+
+    def capture(orig):
+        def run(*args):
+            captured[:] = [tuple(a.detach() for a in args)]
+            return orig(*args)
+        return run
+    with patched(mod, "_backward", capture(mod._backward)):
+        step_fn(model, opt, batches[-1])
+    sync()
+    prof = device_ops(lambda: step_fn(model, opt, batches[-1]), top=16,
+                      keep=keep)
+    params = transformer.param_count(model)
+    del model, opt, batches
+    free()
+    ms = np.array(step_s) * 1e3
+    p50 = float(np.percentile(ms, 50))
+    return {"arch": name, "dtype": cfg.act_dtype, "remat": cfg.remat,
+            "layers": cfg.n_layers, "pattern": cfg.pattern,
+            "params": params, "init_s": init_s, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "warmup": TM_WARMUP, "steps": TM_STEPS,
+            "losses": losses,
+            "step_ms": {"p50": p50, "p99": float(np.percentile(ms, 99)),
+                        "mean": float(ms.mean()), "each": ms.tolist()},
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(ms.mean()) * 1e3,
+            "peak_allocated_bytes": peak, "launches": launches,
+            "launches_per_step": want,
+            "device_ms_of_profiled_step": prof["kernel_ms"],
+            "device_busy_share_of_p50": prof["kernel_ms"] / p50,
+            "profile_step": prof}, captured[0]
+
+
+def per_call_ms(prof: dict, names, calls: int) -> dict:
+    """Device ms a call of the kept kernels whose names hold one of
+    ``names``, from a profiled step that made ``calls`` calls."""
+    hit = {k["name"][:90]: k["ms"] for k in prof["kept"]
+           if any(n in k["name"] for n in names)}
+    return {"ms": sum(hit.values()) / calls, "calls": calls,
+            "kernels_ms": hit}
+
+
+def train_mixers_grad_check(arch: str, dev) -> dict:
+    """The smoke config of ``arch`` (its whole pattern; MoE capacity 4.0)
+    at f32 on the card (the recurrence kernels forward and backward, the
+    attention's simt forward and backward) against the same weights and
+    batch on the CPU (plain versions): the loss to 1e-5 and each gradient
+    leaf to ``TRAIN_CHECK_REL`` of its largest."""
+    cfg = configs.smoke(arch).with_(act_dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                                capacity_factor=4.0))
+    cpu = transformer.DecoderLM(cfg, device="cpu", train=True,
+                                generator=torch.Generator().manual_seed(
+                                    SEED + 67))
+    gpu = transformer.DecoderLM(cfg, device=dev, train=True,
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(SEED + 67))
+    with torch.no_grad():
+        for a, b in zip(gpu.parameters(), cpu.parameters()):
+            a.copy_(b)
+    rng = np.random.default_rng(SEED + 71)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (TM_SMOKE_B,
+                                                       TM_SMOKE_S)))
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab, (TM_SMOKE_B,
+                                                         TM_SMOKE_S)))
+    reset_counts()
+    loss_g = transformer.loss_fn(gpu, toks.to(dev), labels.to(dev))
+    grads_g = torch.autograd.grad(loss_g, list(gpu.parameters()))
+    launches = counts()
+    loss_c = transformer.loss_fn(cpu, toks, labels)
+    grads_c = torch.autograd.grad(loss_c, list(cpu.parameters()))
+    worst = max(float((a.cpu() - b).abs().max())
+                / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(grads_g, grads_c))
+    loss_g, loss_c = float(loss_g.detach()), float(loss_c.detach())
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    G = cfg.n_groups
+    n = {kind: G * cfg.pattern.count(kind) for kind in "amr"}
+    want = {"wkv6": 2 * n["r"], "wkv6_bwd": n["r"],
+            "wkv6_bwd_reduce": n["r"], "selective_scan": 2 * n["m"],
+            "selective_scan_bwd": n["m"], "selective_scan_bwd_reduce": n["m"],
+            "flash_attn": 2 * n["a"], "flash_attn_bwd": 3 * n["a"]}
+    check(all(launches[k] == want.get(k, 0) for k in launches),
+          f"train-mixers: {arch} smoke gradients launched {launches}, not "
+          f"{want}")
+    check(worst <= TRAIN_CHECK_REL and loss_rel <= 1e-5,
+          f"train-mixers: {arch} smoke gradients on the card differ from "
+          f"the CPU's by {worst:.3g} of a leaf's largest (bar "
+          f"{TRAIN_CHECK_REL}), the loss by {loss_rel:.3g}")
+    return {"pattern": cfg.pattern, "layers": cfg.n_layers,
+            "batch": TM_SMOKE_B, "seq": TM_SMOKE_S, "dtype": "float32",
+            "loss": loss_g, "loss_rel_err": loss_rel,
+            "grad_worst_share_of_leaf_max": worst, "bar": TRAIN_CHECK_REL,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def train_mixers_cli(tmp: str) -> dict:
+    """``python -m repro_torch.launch.train`` with ``TM_CLI`` (rwkv6-3b's
+    smoke config, f32, on the card) and ``--ckpt-dir tmp``, whose own
+    check asserts the loss fell; then ``--resume`` from its newest
+    checkpoint (after step 10, holding 11 steps) must repeat the first
+    run's losses of steps 11-19 bit for bit."""
+    args = TM_CLI + ["--ckpt-dir", tmp]
+    reset_counts()
+    t0 = time.perf_counter()
+    first = train_launcher.main(args)
+    first_s = time.perf_counter() - t0
+    launches = counts()
+    free()
+    second = train_launcher.main(args + ["--resume"])
+    resumed = len(first) - len(second)
+    check(len(first) == 20 and resumed == 11,
+          f"train-mixers cli: {len(first)} steps, resumed at {resumed}")
+    check(second == first[resumed:], f"train-mixers cli: the resumed "
+          f"losses {second} are not the first run's {first[resumed:]}")
+    L = configs.smoke(TM_RWKV).n_layers
+    check(launches["wkv6"] == 2 * L * 20 and launches["wkv6_bwd"] == L * 20,
+          f"train-mixers cli: launches {launches}")
+    return {"args": args, "losses": first, "resumed_losses": second,
+            "resumed_at": resumed, "dtype": "float32", "seconds": first_s,
+            "launches": {k: v for k, v in launches.items() if v},
+            "ckpt_steps": sorted(os.listdir(tmp))}
+
+
+def train_mixers_phase(dev, report: dict) -> tuple[dict, list, dict]:
+    """(a) rwkv6-3b at full width and depth and (b) jamba's "ma" pair at
+    full width trained in bf16 through the recurrence kernels' backward;
+    the two backward kernels' rows on layer 0's inputs; (c) f32 checks:
+    the smoke configs' gradients on the card against the CPU, and the
+    launcher's rwkv6 run with its resume. Returns the phase's line, the
+    rows and the attention's training numbers at d = 128 (jamba)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = configs.ARCHS[TM_RWKV]
+    L = cfg.n_layers
+    rwkv, wkv_in = train_mixer_run(
+        TM_RWKV, cfg, dev, wk, {"wkv6": 2 * L, "wkv6_bwd": L,
+                                "wkv6_bwd_reduce": L},
+        ("wkv6",))
+    wkv_launches = {"wkv6_bwd_kernel": rwkv["launches"]["wkv6_bwd"],
+                    "wkv6_bwd_reduce_kernel":
+                        rwkv["launches"]["wkv6_bwd_reduce"]}
+    wkv_row = wkv6_bwd_row(wkv_in, wkv_launches, per_call_ms(
+        rwkv["profile_step"], ("wkv6_bwd",), L),
+        report["wkv6_bwd"]["ptxas"])
+    rwkv["wkv6_fwd_in_step"] = per_call_ms(rwkv["profile_step"],
+                                           ("wkv6_kernel",), 2 * L)
+    del wkv_in
+    free()
+
+    jcfg = configs.ARCHS[TM_JAMBA].with_(**TM_JAMBA_CUTS)
+    want = {"selective_scan": 2, "selective_scan_bwd": 1,
+            "selective_scan_bwd_reduce": 1, "flash_attn": 2,
+            "flash_attn_bwd": 3, "tc": 2, "bwd_tc": 1}
+    jamba, scan_in = train_mixer_run(TM_JAMBA, jcfg, dev, ssk, want,
+                                     ("selective_scan", "flash_"))
+    jamba["cuts"] = {"layers": f"2 of {configs.ARCHS[TM_JAMBA].n_layers} "
+                               f"(the whole model is 398 B parameters)",
+                     "pattern": f"'ma' of "
+                                f"'{configs.ARCHS[TM_JAMBA].pattern}'",
+                     "moe": "off: 16 experts of d_ff 24,576 do not fit one "
+                            "card; each layer keeps its dense SwiGLU FFN"}
+    scan_launches = {"selective_scan_bwd_kernel":
+                         jamba["launches"]["selective_scan_bwd"],
+                     "selective_scan_bwd_reduce_kernel":
+                         jamba["launches"]["selective_scan_bwd_reduce"]}
+    scan_row = selective_scan_bwd_row(scan_in, scan_launches, per_call_ms(
+        jamba["profile_step"], ("selective_scan_bwd",), 1),
+        report["selective_scan_bwd"]["ptxas"])
+    jamba["selective_scan_fwd_in_step"] = per_call_ms(
+        jamba["profile_step"], ("selective_scan_kernel",), 2)
+    del scan_in
+    free()
+    attn = {"shape": {"B": TRAIN_BATCH, "S": TRAIN_SEQ,
+                      "Hq": jcfg.n_heads, "Hkv": jcfg.n_kv_heads,
+                      "d": jcfg.hd, "dtype": jcfg.act_dtype},
+            "forward_tc_in_step": per_call_ms(jamba["profile_step"],
+                                              ("flash_tc",), 2),
+            "backward_in_step": {
+                k: per_call_ms(jamba["profile_step"], (f"flash_bwd_{k}",), 1)
+                for k in BWD_KERNELS},
+            "launches": {"flash_attn": jamba["launches"]["flash_attn"],
+                         "flash_attn_bwd":
+                             jamba["launches"]["flash_attn_bwd"]}}
+
+    checks = {arch: train_mixers_grad_check(arch, dev)
+              for arch in (TM_RWKV, TM_JAMBA)}
+    free()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_mixers_")
+    try:
+        cli = train_mixers_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free()
+    wkv_row["launches_by_path"] = {
+        "train-mixers-rwkv": wkv_row["launches"],
+        "train-mixers-smoke": checks[TM_RWKV]["launches"]["wkv6_bwd"],
+        "train-mixers-cli": cli["launches"]["wkv6_bwd"]}
+    scan_row["launches_by_path"] = {
+        "train-mixers-jamba": scan_row["launches"],
+        "train-mixers-smoke": checks[TM_JAMBA]["launches"][
+            "selective_scan_bwd"]}
+    out = {"phase": "train-mixers", "rwkv": rwkv, "jamba": jamba,
+           "attention_d128": attn, "f32_checks": checks, "cli": cli,
+           "seconds": time.perf_counter() - t0}
+    return out, [wkv_row, scan_row], attn
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3671,7 +4118,8 @@ def main() -> int:
     report = build.build()
     build_s = time.perf_counter() - t0
     stale = [k for k in ("flash_attn", "flash_attn_bwd", "wkv6",
-                         "selective_scan") if k not in report]
+                         "selective_scan", "wkv6_bwd", "selective_scan_bwd")
+             if k not in report]
     if stale:  # libraries left by an earlier run: their ptxas reports
         report.update(build.build(stale, force=True))
     flash_build = flash_attn_build(report["flash_attn"]["ptxas"])
@@ -3682,7 +4130,8 @@ def main() -> int:
           "kernels": {k: v["seconds"] for k, v in report.items()},
           "flash_attn": flash_build, "flash_attn_bwd": bwd_build,
           **{k: ptxas_usage(report[k]["ptxas"], rec_label)
-             for k in ("wkv6", "selective_scan")}})
+             for k in ("wkv6", "selective_scan", "wkv6_bwd",
+                       "selective_scan_bwd")}})
 
     lm, flash_row = lm_phase(dev)
     emit(lm)
@@ -3701,6 +4150,17 @@ def main() -> int:
         mixers["phi"]["launches"]["flash_attn"]
     flash_row["launches_by_variant"]["mixers-phi"] = \
         mixers["phi"]["launches_by_variant"]
+    free()
+    train_mixers, tm_rows, tm_attn = train_mixers_phase(dev, report)
+    emit(train_mixers)
+    flash_row["launches_by_path"]["train-mixers-jamba"] = \
+        tm_attn["launches"]["flash_attn"]
+    flash_row["train_d128"] = {"shape": tm_attn["shape"],
+                               "in_step": tm_attn["forward_tc_in_step"]}
+    bwd_row["launches_by_path"]["train-mixers-jamba"] = \
+        tm_attn["launches"]["flash_attn_bwd"]
+    bwd_row["train_d128"] = {"shape": tm_attn["shape"],
+                             "in_step": tm_attn["backward_in_step"]}
     free()
 
     main_run = run_server("main", "spac-h", N_MAIN, BATCH, STEPS, WARMUP,
@@ -3780,7 +4240,7 @@ def main() -> int:
             row_bbox_kernel_row(porth_run, main_run, by_path("row_bbox")),
             sieve_kernel_row(porth_run, by_path("sieve"), dev),
             morton_kernel_row(zd_run["boot"], spacz_pts, by_path("morton")),
-            flash_row, bwd_row, *mixer_rows]
+            flash_row, bwd_row, *mixer_rows, *tm_rows]
     del main_run, porth_run, kd_run, zd_run, flat_run, spacz_pts, spacz
     free()
     driver_launches = driver_phase(dev)

@@ -8,9 +8,8 @@ Counterpart of ``examples/train_lm.py``:
     PYTHONPATH=src python examples/port/train_lm.py [--arch yi-9b] \\
         [--steps 40] [--device cpu]
 
-The port trains every decoder arch; those with Mamba or RWKV6 layers
-(jamba, rwkv6) only with ``--device cpu`` (their recurrence kernels have
-no backward yet), and the encoder-decoder and frontend archs raise
+The port trains every decoder arch, Mamba and RWKV6 layers (jamba,
+rwkv6) included; the encoder-decoder and frontend archs raise
 NotImplementedError.
 """
 

@@ -29,7 +29,9 @@ SOURCES = {"knn_flat": "knn_flat.cu", "knn_frontier": "knn_frontier.cu",
            "morton": "morton.cu", "row_bbox": "row_bbox.cu",
            "sieve": "sieve.cu", "flash_attn": "flash_attn.cu",
            "flash_attn_bwd": "flash_attn_bwd.cu",
-           "selective_scan": "selective_scan.cu", "wkv6": "wkv6.cu"}
+           "selective_scan": "selective_scan.cu", "wkv6": "wkv6.cu",
+           "selective_scan_bwd": "selective_scan_bwd.cu",
+           "wkv6_bwd": "wkv6_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",

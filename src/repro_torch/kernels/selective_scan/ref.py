@@ -82,3 +82,63 @@ def selective_scan_ex2_plain(dt, xc, A, Bm, Cm, D_skip, h0):
     y = (torch.stack(ys, 1) if ys
          else dt.new_zeros(dt.shape, dtype=torch.float32))
     return y, h
+
+
+def selective_scan_bwd_plain(dt, xc, A, Bm, Cm, D_skip, h0, y_grad):
+    """The gradients of :func:`selective_scan_plain`'s ``y`` (``h_last``
+    takes none) given ``y_grad`` (B, S, di) f32, written out one token at
+    a time in the backward kernel's order of work
+    (``csrc/selective_scan_bwd.cu``), not by autograd. With ``a_t =
+    exp(dt_t A)``, ``b_t = dt_t B_t x_t`` (formed in the activation type,
+    as the forward does; its gradient is the product's), ``h_{t-1}`` the
+    state before token t and ``g_t = dy_t C_t + a_{t+1} g_{t+1}`` the
+    gradient of ``h_t`` (``g`` past the last token 0):
+
+      dC_t[n] = sum_i dy_t[i] h_t[i, n]
+      dlog a_t = g_t a_t h_{t-1}
+      ddt_t = sum_n (dlog a_t[n] A[n] + g_t[n] B_t[n] x_t)
+      dA = sum_{b, t} dlog a_t dt_t
+      dB_t[n] = sum_i g_t[i, n] dt_t[i] x_t[i]
+      dx_t = sum_n g_t[n] dt_t B_t[n] + dy_t D
+      dD = sum_{b, t} dy_t x_t,  dh0 = a_1 g_1 (the first token's)
+
+    Returns ``(ddt, dxc, dA, dBm, dCm, dD, dh0)``: ddt, dxc, dBm, dCm in
+    the types of their inputs (computed in f32, rounded once), the rest
+    f32."""
+    dtf, x, Bf, Cf = dt.float(), xc.float(), Bm.float(), Cm.float()
+    A, D, dy = A.float(), D_skip.float(), y_grad.float()
+    S = dt.shape[1]
+    h = h0.float()
+    before, decay = [], []
+    for t in range(S):
+        d = dt[:, t, :, None]
+        a = torch.exp(d.float() * A)
+        db = (d * Bm[:, t, None, :] * xc[:, t, :, None]).float()
+        before.append(h)
+        decay.append(a)
+        h = a * h + db
+    g = torch.zeros_like(h)
+    a_next = torch.ones_like(h)
+    dA = torch.zeros_like(A)
+    dD = torch.zeros_like(D)
+    ddt, dx, dB, dC = ([None] * S for _ in range(4))
+    for t in reversed(range(S)):
+        h_t = before[t + 1] if t + 1 < S else h
+        dyt, dtt, xt = dy[:, t], dtf[:, t], x[:, t]            # (B, di)
+        dC[t] = (dyt[..., None] * h_t).sum(1)                  # (B, ds)
+        g = dyt[..., None] * Cf[:, t, None, :] + a_next * g
+        dloga = g * decay[t] * before[t]
+        gB = (g * Bf[:, t, None, :]).sum(-1)                   # (B, di)
+        ddt[t] = (dloga * A).sum(-1) + gB * xt
+        dA = dA + (dloga * dtt[..., None]).sum(0)
+        dB[t] = (g * (dtt * xt)[..., None]).sum(1)
+        dx[t] = dtt * gB + dyt * D
+        dD = dD + (dyt * xt).sum(0)
+        a_next = decay[t]
+
+    def stack(parts, like):
+        if not parts:
+            return torch.zeros(like.shape, dtype=like.dtype)
+        return torch.stack(parts, 1).to(like.dtype)
+    return (stack(ddt, dt), stack(dx, xc), dA, stack(dB, Bm),
+            stack(dC, Cm), dD, a_next * g)

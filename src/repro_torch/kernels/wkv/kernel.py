@@ -1,13 +1,28 @@
-"""RWKV6's wkv recurrence: the CUDA kernel ``csrc/wkv6.cu``.
+"""RWKV6's wkv recurrence: the CUDA kernels ``csrc/wkv6.cu`` (forward) and
+``csrc/wkv6_bwd.cu`` (backward), and the autograd function that joins
+them.
 
-It replaces no TPU kernel: the reference leaves the recurrence to XLA
-(the ``lax.scan`` of ``repro/models/rwkv.py:time_mix``). :func:`wkv6`
-launches the kernel for CUDA tensors and takes :func:`ref.wkv6_plain`
-for CPU tensors; any other device raises. Each launch adds one to
-:func:`launch_count`. The kernel has no backward: on a CUDA tensor that
-requires grad under grad mode the wrapper raises (training the RWKV
-layers on the card waits for a backward kernel, ROADMAP queue 1). The
-launch reads nothing back.
+They replace no TPU kernel: the reference leaves the recurrence to XLA
+(the ``lax.scan`` of ``repro/models/rwkv.py:time_mix``) and trains it
+through XLA's autodiff. :func:`wkv6` launches the forward kernel for
+CUDA tensors and takes :func:`ref.wkv6_plain` for CPU tensors; any other
+device raises. :func:`wkv6_bwd` is the gradient: two launches for CUDA
+tensors (the backward and the reduction of its partials), the plain
+:func:`ref.wkv6_bwd_plain` for CPU tensors. A build or launch error
+raises; nothing falls back to a plain version on the card.
+
+:func:`wkv6_train` is the training entry, a ``torch.autograd.Function``
+(:class:`Wkv6`) whose forward is the forward kernel (the plain forward
+on the CPU) and whose backward is :func:`wkv6_bwd`'s kernels (its plain
+version on the CPU). :func:`wkv6` under grad mode with an input that
+requires grad takes the same function (its last state takes no
+gradient; an ``out_state`` updated in place is refused there on the
+card).
+
+:func:`launch_count` counts kernel launches: the forward's by default,
+``"bwd"`` and ``"bwd_reduce"`` the backward's two kernels.
+:func:`call_count` counts the autograd function's forward and backward
+calls on any device. No launch reads anything back.
 """
 
 from __future__ import annotations
@@ -17,21 +32,37 @@ import ctypes
 import torch
 
 from .. import build
-from .ref import wkv6_plain
+from .ref import wkv6_bwd_plain, wkv6_plain
 
 HEAD_DIMS = (32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_STATS = {"launches": 0}
+_STATS = {"launches": 0, "bwd": 0, "bwd_reduce": 0, "forward": 0,
+          "backward": 0}
+_CALLS = ("forward", "backward")
 _FN: list = []
+_BWD: list = []
 
 
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
-    return _STATS["launches"]
+def launch_count(kernel: str | None = None) -> int:
+    """Kernel launches since the last :func:`reset_launch_count`: the
+    forward kernel's, or those of ``kernel`` (``"bwd"``,
+    ``"bwd_reduce"``)."""
+    if kernel in _CALLS:
+        raise ValueError(f"wkv6: {kernel!r} is a call count (call_count)")
+    return _STATS["launches" if kernel is None else kernel]
+
+
+def call_count(kind: str) -> int:
+    """:class:`Wkv6`'s ``"forward"`` or ``"backward"`` calls since the last
+    :func:`reset_launch_count`, on any device."""
+    if kind not in _CALLS:
+        raise ValueError(f"wkv6: no call count {kind!r}")
+    return _STATS[kind]
 
 
 def reset_launch_count() -> None:
-    _STATS["launches"] = 0
+    for key in _STATS:
+        _STATS[key] = 0
 
 
 def _fn():
@@ -42,6 +73,19 @@ def _fn():
             ctypes.c_void_p]
         _FN.append(fn)
     return _FN[0]
+
+
+def _bwd_fn():
+    """The backward's C entry point and its checkpoint interval."""
+    if not _BWD:
+        lib = build.load("wkv6_bwd")
+        fn = lib.wkv6_bwd_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.wkv6_bwd_chunk.restype = ctypes.c_int
+        _BWD.append((fn, lib.wkv6_bwd_chunk()))
+    return _BWD[0]
 
 
 def _check(r, k, v, w, u, state):
@@ -70,11 +114,19 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def wkv6(r, k, v, w, u, state, *, out_state=None):
     """:func:`ref.wkv6_plain`'s function: ``(y, state)``. On the card
     ``out_state`` (B, H, hd, hd) f32, when given, receives the last state
     (it may be ``state`` itself: a cache updated in place) and is
-    returned."""
+    returned. Under grad mode with an input that requires grad and no
+    ``out_state``, the call goes through :class:`Wkv6` (``y``
+    differentiable, the last state not)."""
+    if out_state is None and _needs_grad(r, k, v, w, u, state):
+        return _apply(r, k, v, w, u, state)
     if r.device.type == "cpu":
         y, s = wkv6_plain(r, k, v, w, u, state)
         if out_state is not None:
@@ -84,20 +136,25 @@ def wkv6(r, k, v, w, u, state, *, out_state=None):
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
     _check(r, k, v, w, u, state)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (r, k, v, w, u, state)):
-        raise NotImplementedError(
-            "wkv6: the CUDA kernel has no backward yet (ROADMAP queue 1: "
-            "the recurrence kernels' backward)")
+    if _needs_grad(r, k, v, w, u, state):
+        raise ValueError("wkv6: under grad mode the last state cannot be "
+                         "written in place (out_state); call without it")
+    B, S, H, hd = r.shape
+    if out_state is not None and (
+            tuple(out_state.shape) != (B, H, hd, hd)
+            or out_state.dtype != torch.float32
+            or not out_state.is_contiguous() or out_state.data_ptr() % 16):
+        raise ValueError(f"wkv6: out_state must be a contiguous, 16-byte "
+                         f"aligned ({B}, {H}, {hd}, {hd}) float32 tensor")
+    return _forward(r, k, v, w, u, state, out_state)
+
+
+def _forward(r, k, v, w, u, state, out_state=None):
+    """One launch of the forward kernel on checked CUDA inputs."""
     B, S, H, hd = r.shape
     if out_state is None:
         out_state = torch.empty((B, H, hd, hd), dtype=torch.float32,
                                 device=r.device)
-    elif (tuple(out_state.shape) != (B, H, hd, hd)
-          or out_state.dtype != torch.float32 or not out_state.is_contiguous()
-          or out_state.data_ptr() % 16):
-        raise ValueError(f"wkv6: out_state must be a contiguous, 16-byte "
-                         f"aligned ({B}, {H}, {hd}, {hd}) float32 tensor")
     args = [_aligned(t) for t in (r, k, v, w, u)]
     state = (state if state.data_ptr() == out_state.data_ptr()
              else _aligned(state))
@@ -108,3 +165,89 @@ def wkv6(r, k, v, w, u, state, *, out_state=None):
     _STATS["launches"] += 1
     build.check(err, "wkv6")
     return y, out_state
+
+
+def wkv6_bwd(r, k, v, w, u, state, y_grad):
+    """:func:`ref.wkv6_bwd_plain`'s function: the gradients ``(dr, dk, dv,
+    dw, du, dstate)`` of :func:`wkv6`'s ``y`` given ``y_grad`` (B, S, H,
+    hd) f32. For CUDA tensors, after checking them, the backward kernel
+    and the reduction of its partials (two launches)."""
+    if r.device.type == "cpu":
+        return wkv6_bwd_plain(r, k, v, w, u, state, y_grad)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6: unsupported device {r.device}")
+    _check(r, k, v, w, u, state)
+    if (tuple(y_grad.shape) != tuple(r.shape)
+            or y_grad.dtype != torch.float32 or y_grad.device != r.device):
+        raise ValueError(f"wkv6: y_grad must be {tuple(r.shape)} float32 on "
+                         f"{r.device}, got {tuple(y_grad.shape)} "
+                         f"{y_grad.dtype} on {y_grad.device}")
+    return _backward(r, k, v, w, u, state, y_grad)
+
+
+def _backward(r, k, v, w, u, state, y_grad):
+    """The backward's two launches on checked CUDA inputs."""
+    fn, chunk = _bwd_fn()
+    B, S, H, hd = r.shape
+    f32 = {"dtype": torch.float32, "device": r.device}
+    nvb = hd // 32
+    ckpt = torch.empty((B, H, -(-S // chunk), hd, hd), **f32)
+    parts = torch.empty((3, nvb, B, S, H, hd), **f32)
+    du_part = torch.empty((B, nvb, H, hd), **f32)
+    dr, dk, dv, dw = (torch.empty((B, S, H, hd), **f32) for _ in range(4))
+    du = torch.empty((H, hd), **f32)
+    dstate = torch.empty((B, H, hd, hd), **f32)
+    args = [_aligned(t) for t in (r, k, v, w, u, state, y_grad)]
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = fn(*(t.data_ptr() for t in (*args, ckpt, parts[0], parts[1],
+                                       parts[2], du_part, dr, dk, dv, dw, du,
+                                       dstate)),
+             _DTYPES[r.dtype], B, S, H, hd, stream)
+    _STATS["bwd"] += 1
+    _STATS["bwd_reduce"] += 1
+    build.check(err, "wkv6 backward")
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du, dstate)
+
+
+class Wkv6(torch.autograd.Function):
+    """The wkv recurrence with :func:`wkv6_bwd` as its gradient: returns
+    ``(y, last state)``, the state not differentiable. Inputs are checked
+    by the caller, once a call."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        _STATS["forward"] += 1
+        if r.device.type == "cpu":
+            y, s = wkv6_plain(r, k, v, w, u, state)
+        else:
+            y, s = _forward(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.mark_non_differentiable(s)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, y_grad, _state_grad):
+        _STATS["backward"] += 1
+        r, k, v, w, u, state = ctx.saved_tensors
+        y_grad = y_grad.float()
+        if r.device.type == "cpu":
+            grads = wkv6_bwd_plain(r, k, v, w, u, state, y_grad)
+        else:
+            grads = _backward(r, k, v, w, u, state, y_grad)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def wkv6_train(r, k, v, w, u, state):
+    """The training entry: :func:`wkv6`'s ``y`` through :class:`Wkv6`,
+    differentiable in every input. The inputs are checked here (on the
+    card), once a call."""
+    return _apply(r, k, v, w, u, state)[0]
+
+
+def _apply(r, k, v, w, u, state):
+    if r.device.type == "cuda":
+        _check(r, k, v, w, u, state)
+    elif r.device.type != "cpu":
+        raise ValueError(f"wkv6: unsupported device {r.device}")
+    return Wkv6.apply(r, k, v, w, u, state)

@@ -80,3 +80,51 @@ def wkv6_split_plain(r, k, v, w, u, state):
         s = _fma(wt[..., None], s, kt[..., :, None] * vt[..., None, :])
     y = torch.stack(ys, 1) if ys else r.new_zeros(r.shape, dtype=torch.float32)
     return y, s
+
+
+def wkv6_bwd_plain(r, k, v, w, u, state0, y_grad):
+    """The gradients of :func:`wkv6_plain`'s ``y`` (the last state takes
+    none) given ``y_grad`` (B, S, H, hd) f32, written out one token at a
+    time in the backward kernel's order of work (``csrc/wkv6_bwd.cu``),
+    not by autograd. With ``S_{t-1}`` the state before token t and ``G_t``
+    the gradient of the state after it (``G`` of the last token 0), for
+    t from the last token down:
+
+      dr_t[k] = sum_v dy_t[v] S_{t-1}[k, v] + u[k] k_t[k] (v_t . dy_t)
+      dk_t[k] = u[k] r_t[k] (v_t . dy_t) + sum_v G_t[k, v] v_t[v]
+      dv_t[v] = dy_t[v] sum_k r_t[k] u[k] k_t[k] + sum_k G_t[k, v] k_t[k]
+      dw_t[k] = sum_v G_t[k, v] S_{t-1}[k, v]
+      du[k]   = sum_{b, t} r_t[k] k_t[k] (v_t . dy_t)
+      G_{t-1} = w_t G_t + r_t dy_t^T,  dstate0 = G before the first token
+
+    Returns ``(dr, dk, dv, dw, du, dstate0)``: dr, dk, dv in the types of
+    r, k, v (computed in f32, rounded once), the rest f32."""
+    rf, kf, vf = r.float(), k.float(), v.float()
+    w, u, dy = w.float(), u.float(), y_grad.float()
+    S = r.shape[1]
+    s = state0.float()
+    before = []
+    for t in range(S):
+        before.append(s)
+        s = w[:, t][..., None] * s + kf[:, t][..., :, None] * \
+            vf[:, t][..., None, :]
+    G = torch.zeros_like(s)
+    du = torch.zeros_like(u)
+    dr, dk, dv, dw = ([None] * S for _ in range(4))
+    for t in reversed(range(S)):
+        rt, kt, vt, wt, dyt = rf[:, t], kf[:, t], vf[:, t], w[:, t], dy[:, t]
+        vdy = (vt * dyt).sum(-1, keepdim=True)                # (B, H, 1)
+        dr[t] = torch.einsum("bhkv,bhv->bhk", before[t], dyt) + u * kt * vdy
+        dk[t] = u * rt * vdy + torch.einsum("bhkv,bhv->bhk", G, vt)
+        dv[t] = dyt * (rt * u * kt).sum(-1, keepdim=True) + \
+            torch.einsum("bhkv,bhk->bhv", G, kt)
+        dw[t] = (G * before[t]).sum(-1)
+        du = du + (rt * kt * vdy).sum(0)
+        G = wt[..., None] * G + rt[..., :, None] * dyt[..., None, :]
+
+    def stack(parts, dtype):
+        if not parts:
+            return torch.zeros(r.shape, dtype=dtype)
+        return torch.stack(parts, 1).to(dtype)
+    return (stack(dr, r.dtype), stack(dk, k.dtype), stack(dv, v.dtype),
+            stack(dw, torch.float32), du, G)

@@ -3,9 +3,12 @@ mix, counterpart of ``repro/models/rwkv.py``.
 
 The time mix's recurrence over tokens (the reference's ``lax.scan``) is
 one launch of the wkv6 kernel (``kernels/wkv``) for CUDA tensors and its
-plain version, one token at a time, for CPU tensors. Its state is (B, H,
-hd, hd) f32 a layer (O(1) a decoded token); with a cache, the token-shift
-states and the wkv state are updated in place in the cache given.
+plain version, one token at a time, for CPU tensors. With grad mode on
+(and no cache) it goes through the training entry ``wkv6_train``, whose
+gradient is the wkv6 backward kernel on the card and its plain version
+on the CPU. Its state is (B, H, hd, hd) f32 a layer (O(1) a decoded
+token); with a cache, the token-shift states and the wkv state are
+updated in place in the cache given.
 """
 
 from __future__ import annotations
@@ -56,7 +59,10 @@ def time_mix(x, p, cfg, cache=None):
     if cache is None:
         state0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
                              device=x.device)
-        y, _ = wk.wkv6(r, k, v, w, p["u"], state0)
+        if torch.is_grad_enabled():
+            y = wk.wkv6_train(r, k, v, w, p["u"], state0)
+        else:
+            y, _ = wk.wkv6(r, k, v, w, p["u"], state0)
     else:
         y, _ = wk.wkv6(r, k, v, w, p["u"], cache["wkv"],
                        out_state=cache["wkv"])

@@ -4,7 +4,10 @@
 The recurrence and its output contraction are one launch of the
 selective-scan kernel (``kernels/selective_scan``) for CUDA tensors and
 its plain version, one token at a time, for CPU tensors; the reference's
-(B, S, d_inner, d_state) tensors never exist. The causal depthwise
+(B, S, d_inner, d_state) tensors never exist. With grad mode on (and no
+cache) it goes through the training entry ``selective_scan_train``,
+whose gradient is the selective-scan backward kernel on the card and its
+plain version on the CPU. The causal depthwise
 convolution is the reference's sum of ``d_conv`` shifted products in the
 activation type (not ``F.conv1d``, which cuDNN runs in TF32 on the card).
 Decode keeps O(1) state: the convolution's tail (activation type) and h
@@ -57,7 +60,10 @@ def mamba_block(x, p, cfg, cache=None):
     A = -torch.exp(p["A_log"].float())                        # (di, ds)
     if cache is None:
         h0 = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
-        y, _ = ssk.selective_scan(dt, xc, A, Bm, Cm, p["D_skip"], h0)
+        if torch.is_grad_enabled():
+            y = ssk.selective_scan_train(dt, xc, A, Bm, Cm, p["D_skip"], h0)
+        else:
+            y, _ = ssk.selective_scan(dt, xc, A, Bm, Cm, p["D_skip"], h0)
     else:
         y, _ = ssk.selective_scan(dt, xc, A, Bm, Cm, p["D_skip"], cache["h"],
                                   out_state=cache["h"])

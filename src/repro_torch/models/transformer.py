@@ -24,9 +24,11 @@ to ``bmm`` over a batch of one) and recomputes the rest, attention
 included (the counterpart of ``checkpoint_dots_with_no_batch_dims``),
 ``"none"`` saves everything. The reference's ``scan_layers`` has no
 counterpart: the layers run as a Python loop. The Mamba and RWKV
-recurrences train on the CPU through their plain versions under
-autograd; their CUDA kernels have no backward yet, so a model with such
-layers refuses ``train=True`` on the card. :func:`reference_tree` and
+recurrences train through autograd functions whose backward is a CUDA
+kernel on the card and a plain version on the CPU
+(``kernels/wkv/kernel.py:Wkv6``,
+``kernels/selective_scan/kernel.py:SelectiveScan``); under remat their
+forward kernels run again in the recompute. :func:`reference_tree` and
 :func:`from_reference_tree` map any ``{parameter name: tensor}`` dict
 (the parameters, the optimizer's moments) to the reference's tree with
 the group axis stacked, and back; :func:`reference_params` is the
@@ -138,20 +140,13 @@ class DecoderLM(nn.Module):
     (default: seed 0 on the model's device), in ``cfg.act_dtype``, built
     for serving (no gradients) or, with ``train=True``, with parameters
     that require grad. ``device=None`` means the card and raises on a
-    host without one (:func:`repro_torch.device.resolve_device`). A model
-    with Mamba or RWKV6 layers refuses ``train=True`` on the card: their
-    recurrence kernels have no backward yet."""
+    host without one (:func:`repro_torch.device.resolve_device`)."""
 
     def __init__(self, cfg: ModelCfg, device=None, generator=None,
                  train: bool = False):
         super().__init__()
         _check_supported(cfg)
         dev = resolve_device(device)
-        if train and dev.type == "cuda" and set(cfg.pattern) & set("mr"):
-            raise NotImplementedError(
-                f"{cfg.name}: training Mamba ('m') or RWKV6 ('r') layers on "
-                f"the card needs the recurrence kernels' backward (ROADMAP "
-                f"queue 1, item 5.2); on the CPU their plain versions train")
         dtype = getattr(torch, cfg.act_dtype)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)

@@ -6,7 +6,11 @@ model's parameter names (``dict(model.named_parameters())``). The
 arithmetic is the reference's, in its order: f32 math, the clip scale,
 the bias corrections, decoupled weight decay, the cast back to the
 parameter's dtype (``torch.optim.AdamW`` orders the terms differently),
-each step as one ``torch._foreach_*`` call over every tensor.
+each step as one ``torch._foreach_*`` call over a group of tensors: the
+groups run in turn, each at most ``GROUP_BYTES`` of f32 parameters, so
+the f32 temporaries stay bounded (over all of a 3 B-parameter model at
+once they ran the 80 GB card out of memory); the global norm is taken
+over every gradient first.
 Moments are f32 by default whatever the parameters' dtype. Unlike the
 reference, :func:`adamw_update` writes the new parameters, moments and
 step into the tensors it is given (``torch.no_grad``), and returns them.
@@ -20,6 +24,10 @@ import dataclasses
 import math
 
 import torch
+
+# f32 bytes of parameters a group of the update's foreach calls (a larger
+# tensor is a group alone)
+GROUP_BYTES = 1 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +77,10 @@ def global_norm(tensors) -> torch.Tensor:
 def adamw_update(grads: dict, state: dict, params: dict, cfg: OptCfg):
     """Returns ``(params, state, metrics)``, ``params`` and ``state``
     (``m``, ``v``, ``step``) updated in place; metrics ``lr`` and
-    ``grad_norm`` are 0-d tensors. Each elementwise step runs over all
-    the tensors at once (``torch._foreach_*``: a few launches instead of
-    one a tensor), with the reference's operations in its order."""
+    ``grad_norm`` are 0-d tensors. Each elementwise step runs over a
+    group of tensors at once (``torch._foreach_*``: a few launches a
+    group instead of one a tensor; :func:`_groups`), with the
+    reference's operations in its order."""
     keys = list(params)
     step = state["step"] + 1
     lr = cosine_lr(step, cfg)
@@ -80,6 +89,30 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: OptCfg):
                         max=1.0)
     bc1 = 1 - cfg.b1 ** step.float()
     bc2 = 1 - cfg.b2 ** step.float()
+    for group in _groups(keys, params):
+        _update(group, grads, state, params, cfg, scale, bc1, bc2, lr)
+    state["step"].copy_(step)
+    return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _groups(keys, params):
+    """``keys`` in order, cut into runs of at most ``GROUP_BYTES`` of f32
+    parameters."""
+    group, size = [], 0
+    for k in keys:
+        n = 4 * params[k].numel()
+        if group and size + n > GROUP_BYTES:
+            yield group
+            group, size = [], 0
+        group.append(k)
+        size += n
+    if group:
+        yield group
+
+
+def _update(keys, grads, state, params, cfg, scale, bc1, bc2, lr):
+    """The update of the tensors of ``keys``, each step one foreach call
+    over them."""
     p32 = [params[k].float() for k in keys]
     m, v = [state["m"][k] for k in keys], [state["v"][k] for k in keys]
     mul, add, div = torch._foreach_mul, torch._foreach_add, torch._foreach_div
@@ -95,5 +128,3 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: OptCfg):
                          torch._foreach_sub(p32, mul(u, lr)))
     torch._foreach_copy_(m, m32)
     torch._foreach_copy_(v, v32)
-    state["step"].copy_(step)
-    return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -967,12 +967,21 @@ def test_flash_attn_bwd_wrapper_raises(cuda):
         fab.attention_bwd(q, k, v, o, lse, q, variant="tc")
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "h2o-danube-1.8b",
+                                  "rwkv6-3b", "jamba-1.5-large-398b"])
 def test_smoke_training_on_card_equals_cpu(cuda, arch):
     """The same smoke weights and batch, f32, on the card (simt forward,
-    backward kernels, remat "dots") and on the CPU (plain versions): the
-    loss to 1e-5 and each gradient leaf to 1e-4 of its largest."""
+    backward kernels, the recurrence kernels forward and backward, remat
+    "dots") and on the CPU (plain versions; MoE capacity 4.0, so no token
+    drops): the loss to 1e-5 and each gradient leaf to 1e-4 of its
+    largest."""
+    import dataclasses
+
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.wkv import kernel as wk
     cfg = configs.smoke(arch).with_(act_dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
     cpu = transformer.DecoderLM(cfg, device="cpu", train=True,
                                 generator=torch.Generator().manual_seed(3))
     gpu = transformer.DecoderLM(cfg, train=True, generator=torch.Generator(
@@ -983,10 +992,14 @@ def test_smoke_training_on_card_equals_cpu(cuda, arch):
     rng = np.random.default_rng(6)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 48)))
     labels = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 48)))
-    before = fab.launch_count()
+    n = {kind: cfg.n_groups * cfg.pattern.count(kind) for kind in "amr"}
+    before = (fab.launch_count(), wk.launch_count("bwd"),
+              ssk.launch_count("bwd"))
     loss_g = transformer.loss_fn(gpu, toks.to(cuda), labels.to(cuda))
     grads_g = torch.autograd.grad(loss_g, list(gpu.parameters()))
-    assert fab.launch_count() == before + 3 * cfg.n_layers
+    assert (fab.launch_count() - before[0], wk.launch_count("bwd") - before[1],
+            ssk.launch_count("bwd") - before[2]) == (3 * n["a"], n["r"],
+                                                     n["m"])
     loss_c = transformer.loss_fn(cpu, toks, labels)
     grads_c = torch.autograd.grad(loss_c, list(cpu.parameters()))
     assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
@@ -1282,6 +1295,132 @@ def test_selective_scan_kernel_at_partial_tiles(cuda, di):
     _rec_close(ssk.selective_scan(*args), selective_scan_plain(*args))
 
 
+# the backward kernels against their plain backward (the same f32 formulas
+# from the same inputs; the sums over keys, values, channels and tokens in
+# another order, the scan's exponentials on the SFU): each gradient within
+# REC_REL of its largest |value|; a bf16 gradient (r, k, v; dt, x, B, C) is
+# that f32 value rounded once on each side, so the two may also differ by
+# one bf16 ulp of the value (2^-7 of it at most)
+BF16_ULP = 2.0 ** -7
+
+
+def _rec_bwd_close(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        g, w32 = g.float(), w.float()
+        ulp = BF16_ULP if w.dtype == torch.bfloat16 else 0.0
+        bar = REC_REL * float(w32.abs().max()) + ulp * w32.abs()
+        assert bool(((g - w32).abs() <= bar).all())
+
+
+def _wkv_bwd_inputs(cuda, B, S, H, hd, dtype, seed, w_lo=None):
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, B, S, H, hd, dtype, seed)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    if w_lo is not None:   # decays near 0 and near 1
+        lo = torch.rand(w.shape, generator=g, device=cuda) < 0.5
+        w = torch.where(lo, torch.full_like(w, w_lo),
+                        torch.full_like(w, 1 - w_lo))
+    dy = torch.randn((B, S, H, hd), generator=g, device=cuda)
+    return r, k, v, w, u, s0, dy
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_bwd_kernel_matches_plain(cuda, S, hd, dtype):
+    """S = 37 and 300 are not multiples of the backward's 8-token chunk."""
+    from repro_torch.kernels.wkv import kernel as wk
+    from repro_torch.kernels.wkv.ref import wkv6_bwd_plain
+    args = _wkv_bwd_inputs(cuda, 2, S, 3, hd, dtype, S + hd)
+    before = (wk.launch_count("bwd"), wk.launch_count("bwd_reduce"))
+    got = wk.wkv6_bwd(*args)
+    assert (wk.launch_count("bwd"), wk.launch_count("bwd_reduce")) == (
+        before[0] + 1, before[1] + 1)
+    _rec_bwd_close(got, wkv6_bwd_plain(*args))
+
+
+@pytest.mark.parametrize("w_lo", [1e-30, 1e-6])
+def test_wkv6_bwd_kernel_at_extreme_decays(cuda, w_lo):
+    from repro_torch.kernels.wkv import kernel as wk
+    from repro_torch.kernels.wkv.ref import wkv6_bwd_plain
+    args = _wkv_bwd_inputs(cuda, 2, 45, 2, 64, torch.float32, 7, w_lo)
+    _rec_bwd_close(wk.wkv6_bwd(*args), wkv6_bwd_plain(*args))
+
+
+def _scan_bwd_inputs(cuda, B, S, di, ds, dtype, seed, dt_scale=1.0):
+    dt, *rest = _scan_inputs(cuda, B, S, di, ds, dtype, seed)
+    dt = (dt.float() * dt_scale).to(dtype)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    return (dt, *rest, torch.randn((B, S, di), generator=g, device=cuda))
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+@pytest.mark.parametrize("di,ds", [(256, 4), (300, 16), (131, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_kernel_matches_plain(cuda, S, di, ds, dtype):
+    """d_inner that does not fill the backward's 64-channel CTAs, d_state
+    below 16, S not a multiple of its 8-token chunk."""
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_bwd_plain)
+    args = _scan_bwd_inputs(cuda, 2, S, di, ds, dtype, S + di)
+    before = (ssk.launch_count("bwd"), ssk.launch_count("bwd_reduce"))
+    got = ssk.selective_scan_bwd(*args)
+    assert (ssk.launch_count("bwd"), ssk.launch_count("bwd_reduce")) == (
+        before[0] + 1, before[1] + 1)
+    _rec_bwd_close(got, selective_scan_bwd_plain(*args))
+
+
+def test_selective_scan_bwd_kernel_at_underflowing_decays(cuda):
+    """dt large enough that exp(dt A) underflows to 0 on the later
+    states."""
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_bwd_plain)
+    args = _scan_bwd_inputs(cuda, 2, 29, 96, 16, torch.float32, 3, 400.0)
+    assert float(torch.exp(args[0][..., None] * args[2]).min()) == 0.0
+    _rec_bwd_close(ssk.selective_scan_bwd(*args),
+                   selective_scan_bwd_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_recurrence_bwd_kernels_repeat_bit_for_bit(cuda, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.wkv import kernel as wk
+    for fn, args in (
+            (wk.wkv6_bwd, _wkv_bwd_inputs(cuda, 2, 77, 4, 64, dtype, 5)),
+            (ssk.selective_scan_bwd,
+             _scan_bwd_inputs(cuda, 2, 77, 512, 16, dtype, 5))):
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_recurrence_functions_on_card_equal_cpu(cuda):
+    """The training entries on the card (forward and backward kernels)
+    and on the CPU (plain versions), f32: gradients of every input within
+    REC_REL of their largest."""
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.wkv import kernel as wk
+    for fn, args in (
+            (wk.wkv6_train,
+             _wkv_bwd_inputs(cuda, 2, 21, 2, 32, torch.float32, 9)),
+            (ssk.selective_scan_train,
+             _scan_bwd_inputs(cuda, 2, 21, 72, 16, torch.float32, 9))):
+        dy = args[-1]
+        grads = []
+        for dev in (cuda, torch.device("cpu")):
+            ins = [a.to(dev).clone().requires_grad_() for a in args[:-1]]
+            out = fn(*ins)
+            grads.append(torch.autograd.grad(out, ins, dy.to(dev)))
+        for g, w in zip(*grads):
+            assert float((g.cpu() - w).abs().max()) <= \
+                REC_REL * float(w.abs().max())
+
+
 def test_recurrence_wrappers_raise(cuda):
     from repro_torch.kernels.selective_scan import kernel as ssk
     from repro_torch.kernels.wkv import kernel as wk
@@ -1291,8 +1430,24 @@ def test_recurrence_wrappers_raise(cuda):
     args = _wkv_inputs(cuda, 1, 4, 2, 32, torch.float32, 0)
     with pytest.raises(ValueError, match="w must be"):
         wk.wkv6(*args[:3], args[3].bfloat16(), *args[4:])
-    with pytest.raises(NotImplementedError, match="backward"):
-        wk.wkv6(args[0].requires_grad_(), *args[1:])
+    # under grad mode the call trains through the backward kernels
+    r = args[0].clone().requires_grad_()
+    before = wk.launch_count("bwd")
+    y, s = wk.wkv6(r, *args[1:])
+    assert not s.requires_grad
+    y.sum().backward()
+    assert wk.launch_count("bwd") == before + 1
+    assert r.grad is not None and bool(torch.isfinite(r.grad).all())
+    with pytest.raises(ValueError, match="in place"):
+        wk.wkv6(r, *args[1:], out_state=args[-1].clone())
+    args = _scan_inputs(cuda, 1, 4, 64, 16, torch.float32, 0)
+    xc = args[1].clone().requires_grad_()
+    before = ssk.launch_count("bwd")
+    y, h = ssk.selective_scan(args[0], xc, *args[2:])
+    assert not h.requires_grad
+    y.sum().backward()
+    assert ssk.launch_count("bwd") == before + 1
+    assert xc.grad is not None and bool(torch.isfinite(xc.grad).all())
     args = _scan_inputs(cuda, 1, 4, 64, 17, torch.float32, 0)
     with pytest.raises(ValueError, match="d_state"):
         ssk.selective_scan(*args)
@@ -1305,7 +1460,8 @@ def test_smoke_mixer_lm_on_card_equals_cpu(cuda, arch):
     wkv6) and the same weights on the CPU (plain versions), f32, MoE
     capacity 4.0: teacher-forced logits within 1e-4 of their scale, and
     prefill plus decode within 1e-4 of the card's teacher-forced logits.
-    Training such a model on the card is refused (MoE alone trains)."""
+    Training such a model builds on the card (its training is
+    ``test_smoke_training_on_card_equals_cpu``)."""
     import dataclasses
 
     from repro_torch.kernels.selective_scan import kernel as ssk
@@ -1337,8 +1493,4 @@ def test_smoke_mixer_lm_on_card_equals_cpu(cuda, arch):
             gpu, cache, torch.as_tensor(toks[:, i:i + 1], device=cuda))
         errs.append(float((lg[:, 0] - got[:, i]).abs().max()))
     assert max(errs) / scale < 1e-4, errs
-    if set(cfg.pattern) & set("mr"):
-        with pytest.raises(NotImplementedError, match="backward"):
-            transformer.DecoderLM(cfg, train=True)
-    else:
-        transformer.DecoderLM(cfg, train=True)
+    assert transformer.DecoderLM(cfg, train=True).embed.requires_grad

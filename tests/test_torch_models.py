@@ -246,12 +246,35 @@ def test_decode_matches_reference_forward(arch):
     assert max(errs) / np.abs(ref).max() < 1e-4, (arch, errs)
 
 
-def test_training_mixers_on_the_card_is_refused(monkeypatch):
-    """On a CUDA device ``train=True`` with Mamba or RWKV6 layers raises
-    before anything is allocated (no fallback to the plain versions)."""
-    monkeypatch.setattr(transformer, "resolve_device",
-                        lambda device: torch.device("cuda"))
-    for arch in ("jamba-1.5-large-398b", "rwkv6-3b"):
-        with pytest.raises(NotImplementedError, match="backward"):
-            transformer.DecoderLM(configs.smoke(arch), device="cuda",
-                                  train=True)
+def test_training_mixers_route_through_the_recurrence_functions():
+    """``DecoderLM(train=True)`` with Mamba and RWKV6 layers (the smoke
+    configs of jamba and rwkv6, f32, on the CPU) trains through the
+    autograd functions of the recurrence kernels: under remat "dots" a
+    loss and its gradients call each function's forward twice a layer
+    (the forward and the backward's recompute) and its backward once,
+    and every recurrence parameter gets a finite gradient."""
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    from repro_torch.kernels.wkv import kernel as wk
+    for arch, mod, kind in (("jamba-1.5-large-398b", ssk, "m"),
+                            ("rwkv6-3b", wk, "r")):
+        cfg = configs.smoke(arch).with_(act_dtype="float32")
+        assert cfg.remat == "dots"
+        model = transformer.DecoderLM(cfg, device="cpu", train=True)
+        rng = np.random.default_rng(7)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 24)))
+        labels = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 24)))
+        n = cfg.n_groups * cfg.pattern.count(kind)
+        before = (mod.call_count("forward"), mod.call_count("backward"))
+        loss = transformer.loss_fn(model, toks, labels)
+        named = dict(model.named_parameters())
+        grads = dict(zip(named, torch.autograd.grad(loss,
+                                                    list(named.values()))))
+        assert (mod.call_count("forward") - before[0],
+                mod.call_count("backward") - before[1]) == (2 * n, n)
+        leaves = ("A_log", "D_skip", "dt_proj") if kind == "m" else (
+            "u", "w0", "Wr", "Wk", "Wv")
+        for name, g in grads.items():
+            assert bool(torch.isfinite(g).all()), name
+        for leaf in leaves:
+            hit = [g for name, g in grads.items() if name.endswith(leaf)]
+            assert hit and all(float(g.abs().max()) > 0 for g in hit), leaf
