@@ -444,8 +444,10 @@ class KernelCount:
 KERNELS = {**driver.KERNELS, "flash_attn": fak, "flash_attn_bwd": fab,
            "wkv6": wk, "selective_scan": ssk,
            "wkv6_bwd": KernelCount(wk, "bwd"),
-           "wkv6_bwd_reduce": KernelCount(wk, "bwd_reduce"),
+           "wkv6_bwd_local": KernelCount(wk, "bwd_local"),
+           "wkv6_bwd_carry": KernelCount(wk, "bwd_carry"),
            "selective_scan_bwd": KernelCount(ssk, "bwd"),
+           "selective_scan_bwd_ckpt": KernelCount(ssk, "bwd_ckpt"),
            "selective_scan_bwd_reduce": KernelCount(ssk, "bwd_reduce")}
 
 
@@ -3184,7 +3186,7 @@ REC_SASS_OPS = ("MUFU", "F2F", "FFMA", "FMUL", "FADD", "HMUL2", "HFMA2",
 
 def rec_label(mangled: str) -> str:
     """``wkv6_kernel<bf16,64>``, ``selective_scan_kernel<bf16,full>`` or
-    ``wkv6_bwd_reduce_kernel`` from the mangled name of a recurrence
+    ``wkv6_bwd_carry_kernel<64>`` from the mangled name of a recurrence
     kernel (forward or backward) or of its instantiation."""
     m = re.search(r"\d+((?:wkv6|selective_scan)\w*?_kernel\w*?)I(.+?)EEv",
                   mangled)
@@ -3766,7 +3768,9 @@ def rec_bwd_row(name: str, fn, plain, args, names, bytes_moved: float,
     plain_ms = time_ms(lambda: plain(*args), reps=1, warmup=0)
     b_ms, by, how = bound(bytes_moved, ops)
     return {**cmp, "all_close": ok, "f32_copy": cmp32, "ms": ms,
-            "queued_ms": q_ms, "device_in_step": device,
+            "queued_ms": q_ms, "device_in_step": device["all"],
+            "device_in_step_by_kernel": {
+                k: v["ms"] for k, v in device.items() if k != "all"},
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "bound_terms": how, "bound_share": b_ms / q_ms,
             "library_ms": None,
@@ -3793,6 +3797,12 @@ def wkv6_bwd_row(captured: tuple, launches: dict, device: dict,
     row = rec_bwd_row("wkv6_bwd", wk.wkv6_bwd, wkv6_bwd_plain, captured,
                       ("dr", "dk", "dv", "dw", "du", "dstate"), bytes_moved,
                       ops, launches, device, "wkv6_bwd", ptxas)
+    # the launch's plan (segments, grids, resident CTAs an SM by the
+    # occupancy calculator); the card tests' multi-segment, ragged and
+    # underflowing shapes at the same bar, repeats bit-equal
+    row["plan"] = wk.bwd_plan(r.dtype, B, S, H, hd, r.device)
+    row["at_test_shapes"] = rec_bwd_shapes(
+        "wkv6_bwd", wk.wkv6_bwd, wkv6_bwd_plain, wkv_bwd_cases(r.device))
     return {"name": "wkv6_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/wkv6_bwd.cu",
             "replaces": "src/repro/models/rwkv.py:69 (no TPU kernel: XLA's "
@@ -3830,6 +3840,10 @@ def selective_scan_bwd_row(captured: tuple, launches: dict, device: dict,
     row["bound_terms"]["sfu_terms"] = {"exponentials": B * S * di * ds,
                                        "per_sm_per_clock": 16, "sms": sms,
                                        "clocks_max_sm_mhz": mhz}
+    row["plan"] = ssk.bwd_plan(dt.dtype, B, S, di, dt.device)
+    row["at_test_shapes"] = rec_bwd_shapes(
+        "selective_scan_bwd", ssk.selective_scan_bwd,
+        selective_scan_bwd_plain, scan_bwd_cases(dt.device))
     return {"name": "selective_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/selective_scan_bwd.cu",
             "replaces": "src/repro/models/ssm.py:21 (no TPU kernel: XLA's "
@@ -3837,6 +3851,86 @@ def selective_scan_bwd_row(captured: tuple, launches: dict, device: dict,
                         "of mamba_block, ssm.py:21-89)",
             **row, "shape": {"B": B, "S": S, "d_inner": di, "d_state": ds,
                              "dtype": str(dt.dtype)}}
+
+
+# the figures of the backward kernels' first design (each one kernel of
+# two passes, the first writing the checkpoints, and a reduction kernel),
+# quoted from PERF.md's rows 10-11 (chip_smoke on an NVIDIA H100 80GB
+# HBM3 at 700.00 W): the train-mixers line prints them under
+# "quoted_not_measured", apart from this run's kernel rows
+BWD_FIRST_DESIGN = {
+    "wkv6_bwd": {"queued_ms": 3.6396, "device_in_step_ms": 3.5009,
+                 "device_in_step_by_kernel": {"wkv6_bwd_kernel": 3.129,
+                                              "wkv6_bwd_reduce_kernel": 0.372},
+                 "bound_share": 0.077, "registers": 95,
+                 "resident_ctas_per_sm": 5, "grid": [80, 4],
+                 "launches_per_step": 32},
+    "selective_scan_bwd": {
+        "queued_ms": 5.4190, "device_in_step_ms": 6.5052,
+        "device_in_step_by_kernel": {
+            "selective_scan_bwd_kernel": 6.377,
+            "selective_scan_bwd_reduce_kernel": 0.129},
+        "bound_share": 0.118, "registers": 250, "resident_ctas_per_sm": 4,
+        "grid": [256, 4], "chunk": 8, "launches_per_step": 1}}
+
+
+def wkv_bwd_cases(dev) -> dict:
+    """The card tests' multi-segment, ragged and underflowing wkv6 shapes:
+    the inputs and an f32 output gradient, seeded, on ``dev``."""
+    out = {}
+    for name, (B, S, H, dtype, w_lo) in {
+            "segments_ragged": (1, 1000, 2, torch.bfloat16, None),
+            "underflow": (2, 1000, 2, torch.float32, 1e-30)}.items():
+        g = torch.Generator(device=dev).manual_seed(SEED + S)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        r, k, v = (rnd(B, S, H, 64).to(dtype) for _ in range(3))
+        w = torch.exp(-torch.exp(rnd(B, S, H, 64) - 1))
+        if w_lo is not None:
+            lo = torch.rand(w.shape, generator=g, device=dev) < 0.5
+            w = torch.where(lo, torch.full_like(w, w_lo),
+                            torch.full_like(w, 1 - w_lo))
+        out[name] = (r, k, v, w, rnd(H, 64) * 0.1, rnd(B, H, 64, 64),
+                     rnd(B, S, H, 64))
+    return out
+
+
+def scan_bwd_cases(dev) -> dict:
+    """The card tests' long, ragged and underflowing scan shapes."""
+    out = {}
+    for name, (B, S, di, dtype, scale) in {
+            "long_ragged": (1, 1001, 300, torch.bfloat16, 1.0),
+            "underflow": (2, 29, 96, torch.float32, 400.0)}.items():
+        g = torch.Generator(device=dev).manual_seed(SEED + S)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        dt = (F.softplus(rnd(B, S, di) - 2) * scale).to(dtype)
+        A = -torch.arange(1, 17, device=dev).float().expand(di, 16) * (
+            1 + 0.5 * torch.rand((di, 16), generator=g, device=dev))
+        out[name] = (dt, rnd(B, S, di).to(dtype), A.contiguous(),
+                     rnd(B, S, 16).to(dtype), rnd(B, S, 16).to(dtype),
+                     rnd(di), rnd(B, di, 16), rnd(B, S, di))
+    return out
+
+
+def rec_bwd_shapes(name: str, fn, plain, cases: dict) -> dict:
+    """:func:`rec_bwd_compare` at each case; fails on a miss of the bar
+    or a repeat with other bits."""
+    out = {}
+    for case, args in cases.items():
+        c = rec_bwd_compare(fn, plain, args)
+        check(c["all_close"] and c["repeat_bit_equal"],
+              f"{name} at {case}: share of the bar "
+              f"{c['tolerance_share']:.3g}, repeat bit-equal "
+              f"{c['repeat_bit_equal']}")
+        out[case] = {"shape": list(args[0].shape),
+                     "dtype": str(args[0].dtype),
+                     "tolerance_share": c["tolerance_share"],
+                     "repeat_bit_equal": c["repeat_bit_equal"]}
+    free()
+    return out
 
 
 def train_mixer_run(name: str, cfg, dev, mod, want: dict,
@@ -3966,8 +4060,10 @@ def train_mixers_grad_check(arch: str, dev) -> dict:
     G = cfg.n_groups
     n = {kind: G * cfg.pattern.count(kind) for kind in "amr"}
     want = {"wkv6": 2 * n["r"], "wkv6_bwd": n["r"],
-            "wkv6_bwd_reduce": n["r"], "selective_scan": 2 * n["m"],
-            "selective_scan_bwd": n["m"], "selective_scan_bwd_reduce": n["m"],
+            "wkv6_bwd_local": n["r"], "wkv6_bwd_carry": n["r"],
+            "selective_scan": 2 * n["m"],
+            "selective_scan_bwd": n["m"], "selective_scan_bwd_ckpt": n["m"],
+            "selective_scan_bwd_reduce": n["m"],
             "flash_attn": 2 * n["a"], "flash_attn_bwd": 3 * n["a"]}
     check(all(launches[k] == want.get(k, 0) for k in launches),
           f"train-mixers: {arch} smoke gradients launched {launches}, not "
@@ -4025,14 +4121,15 @@ def train_mixers_phase(dev, report: dict) -> tuple[dict, list, dict]:
     L = cfg.n_layers
     rwkv, wkv_in = train_mixer_run(
         TM_RWKV, cfg, dev, wk, {"wkv6": 2 * L, "wkv6_bwd": L,
-                                "wkv6_bwd_reduce": L},
+                                "wkv6_bwd_local": L, "wkv6_bwd_carry": L},
         ("wkv6",))
-    wkv_launches = {"wkv6_bwd_kernel": rwkv["launches"]["wkv6_bwd"],
-                    "wkv6_bwd_reduce_kernel":
-                        rwkv["launches"]["wkv6_bwd_reduce"]}
-    wkv_row = wkv6_bwd_row(wkv_in, wkv_launches, per_call_ms(
-        rwkv["profile_step"], ("wkv6_bwd",), L),
-        report["wkv6_bwd"]["ptxas"])
+    wkv_launches = {f"{k}_kernel": rwkv["launches"][k]
+                    for k in ("wkv6_bwd", "wkv6_bwd_local",
+                              "wkv6_bwd_carry")}
+    wkv_row = wkv6_bwd_row(wkv_in, wkv_launches, {
+        "all": per_call_ms(rwkv["profile_step"], ("wkv6_bwd",), L),
+        **{k: per_call_ms(rwkv["profile_step"], (k,), L)
+           for k in wkv_launches}}, report["wkv6_bwd"]["ptxas"])
     rwkv["wkv6_fwd_in_step"] = per_call_ms(rwkv["profile_step"],
                                            ("wkv6_kernel",), 2 * L)
     del wkv_in
@@ -4040,7 +4137,8 @@ def train_mixers_phase(dev, report: dict) -> tuple[dict, list, dict]:
 
     jcfg = configs.ARCHS[TM_JAMBA].with_(**TM_JAMBA_CUTS)
     want = {"selective_scan": 2, "selective_scan_bwd": 1,
-            "selective_scan_bwd_reduce": 1, "flash_attn": 2,
+            "selective_scan_bwd_ckpt": 1, "selective_scan_bwd_reduce": 1,
+            "flash_attn": 2,
             "flash_attn_bwd": 3, "tc": 2, "bwd_tc": 1}
     jamba, scan_in = train_mixer_run(TM_JAMBA, jcfg, dev, ssk, want,
                                      ("selective_scan", "flash_"))
@@ -4050,13 +4148,13 @@ def train_mixers_phase(dev, report: dict) -> tuple[dict, list, dict]:
                                 f"'{configs.ARCHS[TM_JAMBA].pattern}'",
                      "moe": "off: 16 experts of d_ff 24,576 do not fit one "
                             "card; each layer keeps its dense SwiGLU FFN"}
-    scan_launches = {"selective_scan_bwd_kernel":
-                         jamba["launches"]["selective_scan_bwd"],
-                     "selective_scan_bwd_reduce_kernel":
-                         jamba["launches"]["selective_scan_bwd_reduce"]}
-    scan_row = selective_scan_bwd_row(scan_in, scan_launches, per_call_ms(
-        jamba["profile_step"], ("selective_scan_bwd",), 1),
-        report["selective_scan_bwd"]["ptxas"])
+    scan_launches = {f"{k}_kernel": jamba["launches"][k]
+                     for k in ("selective_scan_bwd", "selective_scan_bwd_ckpt",
+                               "selective_scan_bwd_reduce")}
+    scan_row = selective_scan_bwd_row(scan_in, scan_launches, {
+        "all": per_call_ms(jamba["profile_step"], ("selective_scan_bwd",), 1),
+        **{k: per_call_ms(jamba["profile_step"], (k,), 1)
+           for k in scan_launches}}, report["selective_scan_bwd"]["ptxas"])
     jamba["selective_scan_fwd_in_step"] = per_call_ms(
         jamba["profile_step"], ("selective_scan_kernel",), 2)
     del scan_in
@@ -4092,6 +4190,10 @@ def train_mixers_phase(dev, report: dict) -> tuple[dict, list, dict]:
             "selective_scan_bwd"]}
     out = {"phase": "train-mixers", "rwkv": rwkv, "jamba": jamba,
            "attention_d128": attn, "f32_checks": checks, "cli": cli,
+           "quoted_not_measured": {
+               "first_design": BWD_FIRST_DESIGN,
+               "from": "PERF.md section 6 rows 10-11, an earlier "
+                       "chip_smoke run; not measured in this run"},
            "seconds": time.perf_counter() - t0}
     return out, [wkv_row, scan_row], attn
 

@@ -21,17 +21,20 @@
 //
 // The walk back needs h_{t-1}. Dividing h_t - b_t by a_t would rebuild
 // it, but a_t underflows to 0 in f32, so states are recomputed from
-// checkpoints, as mamba's own backward does:
-//  - pass 1 runs the recurrence forward from h0 (dt, x, B only) and writes
-//    the state at every kChunk-th token to a scratch buffer; the forward
-//    kernel stays as it is and nothing is held between forward and
-//    backward;
-//  - pass 2 takes the chunks from the last: it reloads the chunk's
-//    checkpoint, recomputes its states (each thread's own in shared
-//    memory) while it forms dC, then walks the chunk backwards with g in
-//    registers. a_t is recomputed in the walk (ex2 on the SFU, as the
-//    forward: exp2 of dt A log2(e)); db is recomputed bit for bit as the
-//    forward forms it (two __hmul2 for bf16).
+// checkpoints, as mamba's own backward does. Three launches:
+//  - selective_scan_bwd_ckpt_kernel (pass 1) runs the recurrence forward
+//    from h0 (dt, x, B only) and writes the state at every kChunk-th token
+//    to a scratch buffer; the forward kernel stays as it is and nothing
+//    is held between forward and backward. Apart from the backward it
+//    needs 128 registers, so 8 CTAs fit an SM: jamba's 1,024 CTAs in one
+//    wave, where inside the backward the pass ran at the backward's 4;
+//  - selective_scan_bwd_kernel (pass 2) takes the chunks from the last: it
+//    reloads the chunk's checkpoint, recomputes its states (each thread's
+//    own in shared memory) while it forms dC, then walks the chunk
+//    backwards with g in registers. a_t is recomputed in the walk (ex2 on
+//    the SFU, as the forward: exp2 of dt A log2(e)); db is recomputed bit
+//    for bit as the forward forms it (two __hmul2 for bf16);
+//  - selective_scan_bwd_reduce_kernel (below).
 // In both passes a chunk's inputs (and in pass 2 the next checkpoint)
 // are fetched into registers while the last chunk computes, then put in
 // shared memory, so the loads' latency hides behind a chunk's work.
@@ -42,9 +45,9 @@
 // are the thread's 2 FMAs a state and four shuffles over the warp's 16
 // channel-pair lanes, each lane keeping one state, then the CTA's two
 // warps added through shared memory. dB, dC (over the CTA blocks of
-// d_inner), dA and dD (over the batch) leave as partials and a second
-// kernel (selective_scan_bwd_reduce_kernel) adds them in a fixed order,
-// in f64, rounding once. No atomics: two calls give the same bits.
+// d_inner), dA and dD (over the batch) leave as partials and the reduce
+// kernel adds them in a fixed order, in f64, rounding once. No atomics:
+// two calls give the same bits.
 //
 // What bounds it on an H100: the SFU, then FP32 instruction slots. A
 // (token, channel, state) costs two exponentials (pass 2's recompute and
@@ -52,12 +55,29 @@
 // passes. At jamba's training shape (4 x 2,048 tokens, d_inner 16,384,
 // d_state 16) that is 2.15e9 steps: 6.4e9 exponentials, ~1.5 ms at 16 a
 // clock an SM on 132 SMs at 1.98 GHz, and ~4.3e10 instructions, ~1.3 ms.
-// The checkpoints add 1.07 GB of writes and as many reads. A CTA of 64
-// threads holds 40 KB of shared memory and 250 registers a thread: 4 CTAs
-// (8 warps) an SM, so the loop is latency-bound first. Throwaway builds
-// timed in one call on the card (random inputs of that shape,
-// device-bound): each chunk loaded between barriers 7.08 ms, with the
-// register prefetch 5.44, and kChunk 4 with it 6.60.
+// The checkpoints add 1.07 GB of writes and as many reads. The backward's
+// CTA of 64 threads holds 40 KB of shared memory and ~220 registers a
+// thread: 4 CTAs (8 warps) an SM, 1,024 CTAs in two full waves, so the
+// loop is latency-bound first. Throwaway builds timed in one call on the
+// card (random inputs of that shape, device-bound): each chunk loaded
+// between barriers 7.08 ms, with the register prefetch 5.44, and kChunk 4
+// with it 6.60; pass 1 as its own kernel at 8 CTAs an SM 5.09 against
+// 5.43 in one kernel.
+//
+// A redesign for more resident warps lost to this one in the same kind
+// of builds: the chunk inputs in a 2-stage cp.async ring instead of the
+// register prefetch and g carried as a g (168 registers) fit 6 CTAs an SM
+// at 6-token chunks, but 1,024 CTAs over 792 resident slots is 1.29
+// waves, and shorter chunks write more checkpoints; at 8-token chunks the
+// ring's CTA needs 46 KB and fits 4 CTAs an SM, as this one does, with
+// more instructions a token; forcing 8 CTAs (4-token chunks, 128
+// registers) spilled. Keeping a_t beside h_{t-1} for the walk would
+// double the states' shared memory, which costs CTAs at every chunk
+// length that keeps the checkpoint traffic bounded. Time segments (the
+// reference's chunked scan, mirrored on the CPU by
+// kernels/selective_scan/ref.py:selective_scan_bwd_segmented_plain) were
+// not taken: jamba's 1,024 CTAs already fill the card, one wave of the
+// checkpoint kernel and two of the backward's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,6 +89,7 @@ constexpr int kChannels = 64;   // channels a CTA
 constexpr int kChunk = 8;       // tokens between pass 1's checkpoints
 constexpr int kMaxState = 16;
 constexpr int kHalf = 8;        // states a thread
+constexpr int kCkptBlocks = 8;  // the checkpoint kernel's CTAs an SM
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kAll = 0xffffffffu;
 
@@ -81,13 +102,18 @@ struct RawOf<__nv_bfloat16> {
   using type = unsigned short;
 };
 
+// a chunk's inputs, as the walks read them
 template <typename T>
-struct __align__(16) Smem {
+struct __align__(16) InSmem {
   using Raw = typename RawOf<T>::type;
   Raw dt[kChunk][kChannels], x[kChunk][kChannels];
   float dy[kChunk][kChannels];
   unsigned Bd[kChunk][kMaxState];   // bf16: B_s in both halves of a word
   float Bf[kChunk][kMaxState], Cf[kChunk][kMaxState];   // 0 past d_state
+};
+
+template <typename T>
+struct __align__(16) Smem : InSmem<T> {
   float part_b[kChunk][2][kMaxState], part_c[kChunk][2][kMaxState];
   // h_{t-1} of the chunk's tokens, [token][tile element][thread]
   float states[kChunk][2 * kHalf][kThreads];
@@ -145,14 +171,14 @@ struct Pair {
 };
 
 // db of the thread's two channels for state s, as the forward forms it
-__device__ __forceinline__ Pair db_pair(const Smem<__nv_bfloat16>& sm,
+__device__ __forceinline__ Pair db_pair(const InSmem<__nv_bfloat16>& sm,
                                         int t, int s, unsigned dw,
                                         unsigned xw, float, float, float,
                                         float) {
   const unsigned p = hmul2(hmul2(dw, sm.Bd[t][s]), xw);
   return {lo_f32(p), hi_f32(p)};
 }
-__device__ __forceinline__ Pair db_pair(const Smem<float>& sm, int t, int s,
+__device__ __forceinline__ Pair db_pair(const InSmem<float>& sm, int t, int s,
                                         unsigned, unsigned, float d0,
                                         float d1, float x0, float x1) {
   const float b = sm.Bf[t][s];
@@ -201,7 +227,7 @@ __device__ __forceinline__ void fetch(Chunk<T>& c, const T* dt, const T* xc,
 }
 
 template <bool kAll, typename T>
-__device__ __forceinline__ void put(Smem<T>& sm, const Chunk<T>& c) {
+__device__ __forceinline__ void put(InSmem<T>& sm, const Chunk<T>& c) {
 #pragma unroll
   for (int j = 0; j < Chunk<T>::NX; ++j) {
     const int i = threadIdx.x + j * kThreads;
@@ -244,17 +270,88 @@ __device__ __forceinline__ float channel_sum(const float (&p)[kHalf],
   return q + __shfl_xor_sync(kAll, q, 2);
 }
 
-// partials: dB, dC [gridDim.x][B][S][ds]; dA [B][di][ds]; dD [B][di].
+// the checkpoints: the state at every kChunk-th token from h0 (pass 1),
 // ckpt [B][chunks][gridDim.x * kChannels][kMaxState]
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kCkptBlocks)
+selective_scan_bwd_ckpt_kernel(const T* __restrict__ dt,
+                               const T* __restrict__ xc,
+                               const float* __restrict__ A,
+                               const T* __restrict__ Bm,
+                               const float* __restrict__ h0,
+                               float* __restrict__ ckpt, int S, int di,
+                               int ds) {
+  __shared__ InSmem<T> sm;
+  const int tid = threadIdx.x, wp = tid >> 5, lane = tid & 31;
+  const int sh = lane & 1;                      // states 8 sh .. 8 sh + 7
+  const int lc = wp * 32 + (lane & ~1);         // channels lc, lc + 1
+  const int b = blockIdx.y, c0 = blockIdx.x * kChannels;
+  const int c = c0 + lc, n0 = sh * kHalf;
+  const long long row = static_cast<long long>(b) * S;
+  const int chunks = (S + kChunk - 1) / kChunk;
+  const long long width = static_cast<long long>(gridDim.x) * kChannels;
+
+  float h[2][kHalf], a2[2][kHalf];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const bool in = c + e < di && n0 + i < ds;
+      a2[e][i] = (in ? A[static_cast<long long>(c + e) * ds + n0 + i] : 0.f) *
+                 kLog2e;
+      h[e][i] = in ? h0[(static_cast<long long>(b) * di + c + e) * ds + n0 + i]
+                   : 0.f;
+    }
+  }
+
+  Chunk<T> in;
+  // pass 1 stages dt, x and B only: no C, no dy
+  fetch<false, T>(in, dt, xc, Bm, nullptr, nullptr, row, min(kChunk, S), c0,
+                  di, ds);
+  for (int j = 0; j < chunks; ++j) {
+    const int t0 = j * kChunk, n = min(kChunk, S - t0);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float* p = ckpt + ((static_cast<long long>(b) * chunks + j) * width +
+                         c + e) * kMaxState + n0;
+      *reinterpret_cast<float4*>(p) =
+          make_float4(h[e][0], h[e][1], h[e][2], h[e][3]);
+      *reinterpret_cast<float4*>(p + 4) =
+          make_float4(h[e][4], h[e][5], h[e][6], h[e][7]);
+    }
+    __syncthreads();
+    put<false>(sm, in);
+    __syncthreads();
+    if (j + 1 < chunks) {
+      fetch<false, T>(in, dt, xc, Bm, nullptr, nullptr, row + t0 + kChunk,
+                      min(kChunk, S - t0 - kChunk), c0, di, ds);
+    }
+#pragma unroll 1
+    for (int t = 0; t < n; ++t) {
+      float d0, d1, x0, x1;
+      const unsigned dw = load_pair(&sm.dt[t][lc], d0, d1);
+      const unsigned xw = load_pair(&sm.x[t][lc], x0, x1);
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) {
+        const Pair db = db_pair(sm, t, n0 + i, dw, xw, d0, d1, x0, x1);
+        h[0][i] = __fmaf_rn(ex2(d0 * a2[0][i]), h[0][i], db.c0);
+        h[1][i] = __fmaf_rn(ex2(d1 * a2[1][i]), h[1][i], db.c1);
+      }
+    }
+  }
+}
+
+// partials: dB, dC [gridDim.x][B][S][ds]; dA [B][di][ds]; dD [B][di].
+// ckpt [B][chunks][gridDim.x * kChannels][kMaxState], from the checkpoint
+// kernel
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 selective_scan_bwd_kernel(const T* __restrict__ dt, const T* __restrict__ xc,
                           const float* __restrict__ A,
                           const T* __restrict__ Bm, const T* __restrict__ Cm,
                           const float* __restrict__ Dskip,
-                          const float* __restrict__ h0,
                           const float* __restrict__ dy,
-                          float* __restrict__ ckpt,
+                          const float* __restrict__ ckpt,
                           float* __restrict__ db_part,
                           float* __restrict__ dc_part,
                           float* __restrict__ da_part,
@@ -282,46 +379,11 @@ selective_scan_bwd_kernel(const T* __restrict__ dt, const T* __restrict__ xc,
       const long long at = static_cast<long long>(c + e) * ds + n0 + i;
       Av[e][i] = in ? A[at] : 0.f;
       a2[e][i] = Av[e][i] * kLog2e;
-      h[e][i] = in ? h0[(static_cast<long long>(b) * di + c + e) * ds + n0 + i]
-                   : 0.f;
     }
   }
   const float Dv = own < di ? Dskip[own] : 0.f;
 
-  // pass 1: the states at the chunks' first tokens
   Chunk<T> in;
-  fetch<false>(in, dt, xc, Bm, Cm, dy, row, min(kChunk, S), c0, di, ds);
-  for (int j = 0; j < chunks; ++j) {
-    const int t0 = j * kChunk, n = min(kChunk, S - t0);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float* p = ckpt + ((static_cast<long long>(b) * chunks + j) * width +
-                         c + e) * kMaxState + n0;
-      *reinterpret_cast<float4*>(p) =
-          make_float4(h[e][0], h[e][1], h[e][2], h[e][3]);
-      *reinterpret_cast<float4*>(p + 4) =
-          make_float4(h[e][4], h[e][5], h[e][6], h[e][7]);
-    }
-    __syncthreads();
-    put<false>(sm, in);
-    __syncthreads();
-    if (j + 1 < chunks) {
-      fetch<false>(in, dt, xc, Bm, Cm, dy, row + t0 + kChunk,
-                   min(kChunk, S - t0 - kChunk), c0, di, ds);
-    }
-    for (int t = 0; t < n; ++t) {
-      float d0, d1, x0, x1;
-      const unsigned dw = load_pair(&sm.dt[t][lc], d0, d1);
-      const unsigned xw = load_pair(&sm.x[t][lc], x0, x1);
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        const Pair db = db_pair(sm, t, n0 + i, dw, xw, d0, d1, x0, x1);
-        h[0][i] = __fmaf_rn(ex2(d0 * a2[0][i]), h[0][i], db.c0);
-        h[1][i] = __fmaf_rn(ex2(d1 * a2[1][i]), h[1][i], db.c1);
-      }
-    }
-  }
-
   // pass 2: the chunks from the last, each recomputed, then walked back
   float g[2][kHalf], an[2][kHalf], dA[2][kHalf], dD = 0.f;
 #pragma unroll
@@ -482,16 +544,23 @@ int launch(const void* dt, const void* xc, const void* A, const void* Bm,
            void* dD, void* dh0, int batch, int S, int di, int ds,
            cudaStream_t st) {
   const int blocks = (di + kChannels - 1) / kChannels;
+  selective_scan_bwd_ckpt_kernel<T><<<dim3(blocks, batch), kThreads, 0,
+                                      st>>>(
+      static_cast<const T*>(dt), static_cast<const T*>(xc),
+      static_cast<const float*>(A), static_cast<const T*>(Bm),
+      static_cast<const float*>(h0), static_cast<float*>(ckpt), S, di, ds);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   selective_scan_bwd_kernel<T><<<dim3(blocks, batch), kThreads, 0, st>>>(
       static_cast<const T*>(dt), static_cast<const T*>(xc),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(Dskip),
-      static_cast<const float*>(h0), static_cast<const float*>(dy),
-      static_cast<float*>(ckpt), static_cast<float*>(db_part),
-      static_cast<float*>(dc_part), static_cast<float*>(da_part),
-      static_cast<float*>(dd_part), static_cast<float*>(ddt),
-      static_cast<float*>(dx), static_cast<float*>(dh0), S, di, ds);
-  cudaError_t err = cudaGetLastError();
+      static_cast<const float*>(dy), static_cast<const float*>(ckpt),
+      static_cast<float*>(db_part), static_cast<float*>(dc_part),
+      static_cast<float*>(da_part), static_cast<float*>(dd_part),
+      static_cast<float*>(ddt), static_cast<float*>(dx),
+      static_cast<float*>(dh0), S, di, ds);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long nbc = static_cast<long long>(batch) * S * ds;
   Jobs jobs{};
@@ -512,12 +581,33 @@ int launch(const void* dt, const void* xc, const void* A, const void* Bm,
   return static_cast<int>(cudaGetLastError());
 }
 
+// resident CTAs an SM of the backward (ckpt = 0) or checkpoint kernel
+template <typename T>
+int resident(int ckpt) {
+  int n = 0;
+  const cudaError_t err =
+      ckpt ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &n, selective_scan_bwd_ckpt_kernel<T>, kThreads, 0)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &n, selective_scan_bwd_kernel<T>, kThreads, 0);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 }  // namespace
 
 // The checkpoint interval and the channels a CTA (the wrapper sizes the
 // scratch with them).
 extern "C" int selective_scan_bwd_chunk() { return kChunk; }
 extern "C" int selective_scan_bwd_channels() { return kChannels; }
+
+// The backward kernel's (ckpt = 0) or the checkpoint kernel's (ckpt = 1)
+// resident CTAs an SM for dtype (0 f32, 1 bf16), by the occupancy
+// calculator; a negative cudaError_t on failure.
+extern "C" int selective_scan_bwd_resident(int dtype, int ckpt) {
+  if (dtype == 0) return resident<float>(ckpt);
+  if (dtype == 1) return resident<__nv_bfloat16>(ckpt);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
 
 // dt, xc: (batch, S, di) and Bm, Cm: (batch, S, ds) in the activation type
 // (dtype 0 f32, 1 bf16); A: (di, ds), Dskip: (di,), h0: (batch, di, ds)
@@ -526,8 +616,9 @@ extern "C" int selective_scan_bwd_channels() { return kChannels; }
 // dc_part (nb, batch, S, ds); da_part (batch, di, ds); dd_part (batch,
 // di). Outputs, f32: ddt, dx (batch, S, di), dA (di, ds), dB, dC (batch,
 // S, ds), dD (di,), dh0 (batch, di, ds). All contiguous, each base
-// 16-byte aligned; ds <= 16. Two launches on `stream` (the backward, then
-// the partials' reduction); returns the first failing cudaError_t, or 0.
+// 16-byte aligned; ds <= 16. Three launches on `stream` (the checkpoints,
+// the backward, the partials' reduction); returns the first failing
+// cudaError_t, or 0.
 extern "C" int selective_scan_bwd_launch(
     const void* dt, const void* xc, const void* A, const void* Bm,
     const void* Cm, const void* Dskip, const void* h0, const void* dy,

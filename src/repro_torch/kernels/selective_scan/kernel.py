@@ -7,8 +7,9 @@ They replace no TPU kernel: the reference leaves the scan to XLA
 ``mamba_block``) and trains it through XLA's autodiff.
 :func:`selective_scan` launches the forward kernel for CUDA tensors and
 takes :func:`ref.selective_scan_plain` for CPU tensors; any other device
-raises. :func:`selective_scan_bwd` is the gradient: two launches for
-CUDA tensors (the backward and the reduction of its partials), the plain
+raises. :func:`selective_scan_bwd` is the gradient: three launches for
+CUDA tensors (the checkpoints, the backward and the reduction of its
+partials), the plain
 :func:`ref.selective_scan_bwd_plain` for CPU tensors. A build or launch
 error raises; nothing falls back to a plain version on the card.
 
@@ -21,7 +22,8 @@ takes the same function (its last state takes no gradient; an
 ``out_state`` updated in place is refused there on the card).
 
 :func:`launch_count` counts kernel launches: the forward's by default,
-``"bwd"`` and ``"bwd_reduce"`` the backward's two kernels.
+``"bwd_ckpt"``, ``"bwd"`` and ``"bwd_reduce"`` the backward's three
+kernels.
 :func:`call_count` counts the autograd function's forward and backward
 calls on any device. No launch reads anything back.
 """
@@ -37,8 +39,8 @@ from .ref import selective_scan_bwd_plain, selective_scan_plain
 
 MAX_STATE = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_STATS = {"launches": 0, "bwd": 0, "bwd_reduce": 0, "forward": 0,
-          "backward": 0}
+_STATS = {"launches": 0, "bwd_ckpt": 0, "bwd": 0, "bwd_reduce": 0,
+          "forward": 0, "backward": 0}
 _CALLS = ("forward", "backward")
 _FN: list = []
 _BWD: list = []
@@ -46,7 +48,7 @@ _BWD: list = []
 
 def launch_count(kernel: str | None = None) -> int:
     """Kernel launches since the last :func:`reset_launch_count`: the
-    forward kernel's, or those of ``kernel`` (``"bwd"``,
+    forward kernel's, or those of ``kernel`` (``"bwd_ckpt"``, ``"bwd"``,
     ``"bwd_reduce"``)."""
     if kernel in _CALLS:
         raise ValueError(f"selective_scan: {kernel!r} is a call count "
@@ -78,8 +80,8 @@ def _fn():
 
 
 def _bwd_fn():
-    """The backward's C entry point, its checkpoint interval and its
-    channels a CTA."""
+    """The backward's C entry point, its checkpoint interval, its channels
+    a CTA and its occupancy query."""
     if not _BWD:
         lib = build.load("selective_scan_bwd")
         fn = lib.selective_scan_bwd_launch
@@ -88,9 +90,28 @@ def _bwd_fn():
             ctypes.c_void_p]
         lib.selective_scan_bwd_chunk.restype = ctypes.c_int
         lib.selective_scan_bwd_channels.restype = ctypes.c_int
+        resident = lib.selective_scan_bwd_resident
+        resident.restype = ctypes.c_int
+        resident.argtypes = [ctypes.c_int, ctypes.c_int]
         _BWD.append((fn, lib.selective_scan_bwd_chunk(),
-                     lib.selective_scan_bwd_channels()))
+                     lib.selective_scan_bwd_channels(), resident))
     return _BWD[0]
+
+
+def bwd_plan(dtype, B: int, S: int, di: int, device) -> dict:
+    """The backward's launches on the card for a shape: ``chunk`` (tokens
+    between checkpoints), ``channels`` a CTA, the ``grid`` (the checkpoint
+    and backward kernels') and the ``resident`` CTAs an SM of the
+    ``main`` and ``ckpt`` kernels (the occupancy calculator)."""
+    _, chunk, width, resident = _bwd_fn()
+    with torch.cuda.device(torch.device(device)):
+        n = {"main": resident(_DTYPES[dtype], 0),
+             "ckpt": resident(_DTYPES[dtype], 1)}
+    for v in n.values():
+        if v < 0:
+            build.check(-v, "selective_scan backward occupancy")
+    return {"chunk": chunk, "channels": width, "checkpoints": -(-S // chunk),
+            "grid": [-(-di // width), B], "resident": n}
 
 
 def _check(dt, xc, A, Bm, Cm, D_skip, h0):
@@ -183,8 +204,8 @@ def selective_scan_bwd(dt, xc, A, Bm, Cm, D_skip, h0, y_grad):
     """:func:`ref.selective_scan_bwd_plain`'s function: the gradients
     ``(ddt, dxc, dA, dBm, dCm, dD, dh0)`` of :func:`selective_scan`'s
     ``y`` given ``y_grad`` (B, S, di) f32. For CUDA tensors, after
-    checking them, the backward kernel and the reduction of its partials
-    (two launches)."""
+    checking them, the checkpoint kernel, the backward kernel and the
+    reduction of its partials (three launches)."""
     if dt.device.type == "cpu":
         return selective_scan_bwd_plain(dt, xc, A, Bm, Cm, D_skip, h0,
                                         y_grad)
@@ -201,8 +222,8 @@ def selective_scan_bwd(dt, xc, A, Bm, Cm, D_skip, h0, y_grad):
 
 
 def _backward(dt, xc, A, Bm, Cm, D_skip, h0, y_grad):
-    """The backward's two launches on checked CUDA inputs."""
-    fn, chunk, width = _bwd_fn()
+    """The backward's three launches on checked CUDA inputs."""
+    fn, chunk, width, _ = _bwd_fn()
     B, S, di = dt.shape
     ds = A.shape[-1]
     f32 = {"dtype": torch.float32, "device": dt.device}
@@ -222,6 +243,7 @@ def _backward(dt, xc, A, Bm, Cm, D_skip, h0, y_grad):
                                        da_part, dd_part, ddt, dx, dA, dB, dC,
                                        dD, dh0)),
              _DTYPES[dt.dtype], B, S, di, ds, stream)
+    _STATS["bwd_ckpt"] += 1
     _STATS["bwd"] += 1
     _STATS["bwd_reduce"] += 1
     build.check(err, "selective_scan backward")

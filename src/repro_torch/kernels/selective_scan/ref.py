@@ -142,3 +142,108 @@ def selective_scan_bwd_plain(dt, xc, A, Bm, Cm, D_skip, h0, y_grad):
         return torch.stack(parts, 1).to(like.dtype)
     return (stack(ddt, dt), stack(dx, xc), dA, stack(dB, Bm),
             stack(dC, Cm), dD, a_next * g)
+
+
+CHUNK = 8   # tokens between the backward's checkpoints (kChunk there)
+
+
+def selective_scan_bwd_segmented_plain(dt, xc, A, Bm, Cm, D_skip, h0, y_grad,
+                                       seg: int | None = None):
+    """:func:`selective_scan_bwd_plain`'s function with the time
+    decomposition of the reference's chunked scan (``ssm.py:_selective_scan``
+    carries ``h`` across chunks by the chunk's decay product), for the CPU
+    tests. No kernel of the port takes segments: ``csrc/selective_scan_bwd.cu``
+    runs the sequence whole, with checkpoints every ``CHUNK`` tokens, and
+    walks each chunk back carrying ``g`` and recomputing ``a_t``; this
+    mirror carries ``a g`` and sums in torch's order. The tokens are cut
+    into segments of ``seg`` (a multiple of ``CHUNK``; default one segment
+    of the whole sequence, rounded up), and
+
+      (a) each segment's walks from zero: the state, kept at every
+          ``CHUNK``-th token with the decay products from the segment's
+          start, to ``h_loc`` and the segment's decay product ``P``; then
+          ``g`` back from the segment's last token, to ``a g`` of its
+          first (``E_loc``);
+      (b) the carry: ``h`` at the next segment's start ``P h + h_loc`` from
+          ``h0``, and ``a g`` entering a segment from the one after it
+          ``P E + E_loc``, back from 0; what leaves the first is dh0;
+      (c) each segment's chunks from its last: the checkpoint rebuilt as
+          local + prefix ``h``, the chunk's states recomputed, then walked
+          back from the ``a g`` entering the segment.
+
+    Segments are padded to whole ones with ``a = 1`` and zeros, which leave
+    every sum as it is. Same results as :func:`selective_scan_bwd_plain`."""
+    B, S, di = dt.shape
+    ds = A.shape[-1]
+    if seg is None:
+        seg = max(CHUNK, -(-S // CHUNK) * CHUNK)
+    if seg <= 0 or seg % CHUNK:
+        raise ValueError(f"selective_scan: segment {seg} is not a positive "
+                         f"multiple of {CHUNK}")
+    n = max(1, -(-S // seg))
+    A, D, dy = A.float(), D_skip.float(), y_grad.float()
+    a = torch.exp(dt.float()[..., None] * A)                  # (B, S, di, ds)
+    db = (dt[..., None] * Bm[:, :, None, :] * xc[..., None]).float()
+
+    def cut(x, fill=0.0):
+        pad = torch.full((B, n * seg - S, *x.shape[2:]), fill,
+                         dtype=torch.float32)
+        return torch.cat([x.float(), pad], 1).reshape(B, n, seg,
+                                                      *x.shape[2:])
+    a, db = cut(a, 1.0), cut(db)
+    dtf, x, Bf, Cf, dy = (cut(t) for t in (dt, xc, Bm, Cm, dy))
+    # (a)
+    h = torch.zeros((B, n, di, ds))
+    p = torch.ones((B, n, di, ds))
+    ckpt, pre = [], []
+    for t in range(seg):
+        if t % CHUNK == 0:
+            ckpt.append(h)
+            pre.append(p)
+        h = a[:, :, t] * h + db[:, :, t]
+        p = p * a[:, :, t]
+    h_loc, P = h, p
+    e = torch.zeros_like(h)
+    for t in reversed(range(seg)):
+        e = a[:, :, t] * (dy[:, :, t, :, None] * Cf[:, :, t, None, :] + e)
+    e_loc = e
+    # (b)
+    starts, hc = [], h0.float()
+    for i in range(n):
+        starts.append(hc)
+        hc = P[:, i] * hc + h_loc[:, i]
+    ins, ec = [None] * n, torch.zeros((B, di, ds))
+    for i in reversed(range(n)):
+        ins[i] = ec
+        ec = P[:, i] * ec + e_loc[:, i]
+    h_start, gd = torch.stack(starts, 1), torch.stack(ins, 1)
+    # (c)
+    ddt, dx, dC, dB = (torch.zeros(s) for s in ((B, n, seg, di),
+                                                (B, n, seg, di),
+                                                (B, n, seg, ds),
+                                                (B, n, seg, ds)))
+    dA = torch.zeros((di, ds))
+    dD = torch.zeros((di,))
+    for c in reversed(range(seg // CHUNK)):
+        h = ckpt[c] + pre[c] * h_start
+        before = []
+        for t in range(c * CHUNK, (c + 1) * CHUNK):
+            before.append(h)
+            h = a[:, :, t] * h + db[:, :, t]
+            dC[:, :, t] = (dy[:, :, t, :, None] * h).sum(2)
+        for t in reversed(range(c * CHUNK, (c + 1) * CHUNK)):
+            at, dyt, dtt, xt = a[:, :, t], dy[:, :, t], dtf[:, :, t], x[:, :, t]
+            g = dyt[..., None] * Cf[:, :, t, None, :] + gd
+            dloga = g * at * before[t - c * CHUNK]
+            gB = (g * Bf[:, :, t, None, :]).sum(-1)
+            ddt[:, :, t] = (dloga * A).sum(-1) + gB * xt
+            dA = dA + (dloga * dtt[..., None]).sum((0, 1))
+            dB[:, :, t] = (g * (dtt * xt)[..., None]).sum(2)
+            dx[:, :, t] = dtt * gB + dyt * D
+            dD = dD + (dyt * xt).sum((0, 1))
+            gd = at * g
+
+    def back(t, like):
+        return t.reshape(B, n * seg, *t.shape[3:])[:, :S].to(like.dtype)
+    return (back(ddt, dt), back(dx, xc), dA, back(dB, Bm), back(dC, Cm), dD,
+            ec)

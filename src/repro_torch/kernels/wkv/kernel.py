@@ -6,8 +6,9 @@ They replace no TPU kernel: the reference leaves the recurrence to XLA
 (the ``lax.scan`` of ``repro/models/rwkv.py:time_mix``) and trains it
 through XLA's autodiff. :func:`wkv6` launches the forward kernel for
 CUDA tensors and takes :func:`ref.wkv6_plain` for CPU tensors; any other
-device raises. :func:`wkv6_bwd` is the gradient: two launches for CUDA
-tensors (the backward and the reduction of its partials), the plain
+device raises. :func:`wkv6_bwd` is the gradient: three launches for CUDA
+tensors (the segments' local walks, the carry across segments, the main
+backward; :func:`bwd_plan` gives the segments), the plain
 :func:`ref.wkv6_bwd_plain` for CPU tensors. A build or launch error
 raises; nothing falls back to a plain version on the card.
 
@@ -20,9 +21,9 @@ gradient; an ``out_state`` updated in place is refused there on the
 card).
 
 :func:`launch_count` counts kernel launches: the forward's by default,
-``"bwd"`` and ``"bwd_reduce"`` the backward's two kernels.
-:func:`call_count` counts the autograd function's forward and backward
-calls on any device. No launch reads anything back.
+``"bwd"``, ``"bwd_local"`` and ``"bwd_carry"`` the backward's three
+kernels. :func:`call_count` counts the autograd function's forward and
+backward calls on any device. No launch reads anything back.
 """
 
 from __future__ import annotations
@@ -36,17 +37,18 @@ from .ref import wkv6_bwd_plain, wkv6_plain
 
 HEAD_DIMS = (32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_STATS = {"launches": 0, "bwd": 0, "bwd_reduce": 0, "forward": 0,
-          "backward": 0}
+_STATS = {"launches": 0, "bwd": 0, "bwd_local": 0, "bwd_carry": 0,
+          "forward": 0, "backward": 0}
 _CALLS = ("forward", "backward")
 _FN: list = []
 _BWD: list = []
+_PLANS: dict = {}
 
 
 def launch_count(kernel: str | None = None) -> int:
     """Kernel launches since the last :func:`reset_launch_count`: the
-    forward kernel's, or those of ``kernel`` (``"bwd"``,
-    ``"bwd_reduce"``)."""
+    forward kernel's, or those of ``kernel`` (``"bwd"``, ``"bwd_local"``,
+    ``"bwd_carry"``)."""
     if kernel in _CALLS:
         raise ValueError(f"wkv6: {kernel!r} is a call count (call_count)")
     return _STATS["launches" if kernel is None else kernel]
@@ -76,16 +78,45 @@ def _fn():
 
 
 def _bwd_fn():
-    """The backward's C entry point and its checkpoint interval."""
+    """The backward's C entry points (launch, plan) and its checkpoint
+    interval."""
     if not _BWD:
         lib = build.load("wkv6_bwd")
         fn = lib.wkv6_bwd_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
+        plan = lib.wkv6_bwd_plan
+        plan.restype = ctypes.c_int
+        plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.wkv6_bwd_chunk.restype = ctypes.c_int
-        _BWD.append((fn, lib.wkv6_bwd_chunk()))
+        _BWD.append((fn, plan, lib.wkv6_bwd_chunk()))
     return _BWD[0]
+
+
+def bwd_plan(dtype, B: int, S: int, H: int, hd: int, device) -> dict:
+    """The backward's launch plan on the card for a shape, as its launcher
+    computes it (cached): ``segment`` tokens a segment, ``segments``,
+    ``chunk`` (tokens between checkpoints), ``resident`` CTAs an SM of its
+    ``main``, ``local`` and ``carry`` kernels (the occupancy calculator),
+    ``sms`` and each kernel's ``grid``."""
+    device = torch.device(device)
+    key = (dtype, B, S, H, hd, device.index)
+    if key not in _PLANS:
+        _, plan, chunk = _bwd_fn()
+        out = (ctypes.c_int * 6)()
+        with torch.cuda.device(device):
+            err = plan(_DTYPES[dtype], B, S, H, hd, out)
+        build.check(err, "wkv6 backward plan")
+        nvb, n = hd // 32, out[1]
+        _PLANS[key] = {
+            "segment": out[0], "segments": n, "chunk": chunk,
+            "resident": {"main": out[2], "local": out[3], "carry": out[4]},
+            "sms": out[5],
+            "grid": {"main": [H * nvb, n, B], "local": [H * nvb, n, B],
+                     "carry": [H * nvb, B + 1]},
+            "cluster": nvb}
+    return _PLANS[key]
 
 
 def _check(r, k, v, w, u, state):
@@ -170,8 +201,8 @@ def _forward(r, k, v, w, u, state, out_state=None):
 def wkv6_bwd(r, k, v, w, u, state, y_grad):
     """:func:`ref.wkv6_bwd_plain`'s function: the gradients ``(dr, dk, dv,
     dw, du, dstate)`` of :func:`wkv6`'s ``y`` given ``y_grad`` (B, S, H,
-    hd) f32. For CUDA tensors, after checking them, the backward kernel
-    and the reduction of its partials (two launches)."""
+    hd) f32. For CUDA tensors, after checking them, the backward's three
+    launches (:func:`bwd_plan`)."""
     if r.device.type == "cpu":
         return wkv6_bwd_plain(r, k, v, w, u, state, y_grad)
     if r.device.type != "cuda":
@@ -186,25 +217,34 @@ def wkv6_bwd(r, k, v, w, u, state, y_grad):
 
 
 def _backward(r, k, v, w, u, state, y_grad):
-    """The backward's two launches on checked CUDA inputs."""
-    fn, chunk = _bwd_fn()
+    """The backward's launches on checked CUDA inputs."""
+    fn = _bwd_fn()[0]
     B, S, H, hd = r.shape
-    f32 = {"dtype": torch.float32, "device": r.device}
+    plan = bwd_plan(r.dtype, B, S, H, hd, r.device)
+    n = plan["segments"]
+    nch = n * plan["segment"] // plan["chunk"]
     nvb = hd // 32
-    ckpt = torch.empty((B, H, -(-S // chunk), hd, hd), **f32)
-    parts = torch.empty((3, nvb, B, S, H, hd), **f32)
-    du_part = torch.empty((B, nvb, H, hd), **f32)
+    f32 = {"dtype": torch.float32, "device": r.device}
+    scratch = (torch.empty((B, H, nvb, nch, hd, 32), **f32),   # ckpt
+               torch.empty((B, H, nch, hd), **f32),            # pre
+               torch.empty((B, H, nvb, n, hd, 32), **f32),     # sloc
+               torch.empty((B, H, nvb, n, hd, 32), **f32),     # gloc
+               torch.empty((B, H, n, hd), **f32),              # dseg
+               torch.empty((B, nvb, n, H, hd), **f32))         # du_part
     dr, dk, dv, dw = (torch.empty((B, S, H, hd), **f32) for _ in range(4))
     du = torch.empty((H, hd), **f32)
     dstate = torch.empty((B, H, hd, hd), **f32)
     args = [_aligned(t) for t in (r, k, v, w, u, state, y_grad)]
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in (*args, ckpt, parts[0], parts[1],
-                                       parts[2], du_part, dr, dk, dv, dw, du,
-                                       dstate)),
-             _DTYPES[r.dtype], B, S, H, hd, stream)
-    _STATS["bwd"] += 1
-    _STATS["bwd_reduce"] += 1
+    # the launcher's plan and shared-memory limit are the current device's
+    with torch.cuda.device(r.device):
+        err = fn(*(t.data_ptr() for t in (*args, *scratch, dr, dk, dv, dw,
+                                           du, dstate)),
+                 _DTYPES[r.dtype], B, S, H, hd, stream)
+    _STATS["bwd_carry"] += 1
+    if n:
+        _STATS["bwd_local"] += 1
+        _STATS["bwd"] += 1
     build.check(err, "wkv6 backward")
     return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du, dstate)
 

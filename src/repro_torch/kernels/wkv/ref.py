@@ -128,3 +128,100 @@ def wkv6_bwd_plain(r, k, v, w, u, state0, y_grad):
         return torch.stack(parts, 1).to(dtype)
     return (stack(dr, r.dtype), stack(dk, k.dtype), stack(dv, v.dtype),
             stack(dw, torch.float32), du, G)
+
+
+CHUNK = 8   # tokens between the backward's checkpoints (wkv6_bwd.cu: kChunk)
+
+
+def wkv6_bwd_segmented_plain(r, k, v, w, u, state0, y_grad, seg: int):
+    """:func:`wkv6_bwd_plain`'s function with ``csrc/wkv6_bwd.cu``'s
+    decomposition, for the CPU tests: the tokens cut into segments of
+    ``seg`` (a multiple of ``CHUNK``; the last may be short), and
+
+      (a) each segment's walks from zero: the state from the segment's
+          first token, kept at every ``CHUNK``-th token with the keys'
+          decay products from the segment's start (the local
+          checkpoints and prefixes), to ``S_loc`` and the segment's decay
+          product ``D``; then ``G`` back from the segment's last token to
+          ``G_loc``, and du (``r k (v . dy)``) on the way;
+      (b) the carry over the segments in order: ``S_start`` of the next
+          segment ``D S_start + S_loc`` from ``state0``, and ``G`` at a
+          segment's end ``D G_end + G_loc`` of the one after it, back
+          from 0; ``G`` before the first segment is dstate0;
+      (c) each segment's chunks from its last: the checkpoint rebuilt as
+          local + prefix ``S_start``, the chunk's states recomputed, then
+          walked back with ``G`` from the segment's end.
+
+    The segments are padded to whole ones with ``w = 1`` and zeros, which
+    leave every sum as it is. Same results as :func:`wkv6_bwd_plain`."""
+    if seg <= 0 or seg % CHUNK:
+        raise ValueError(f"wkv6: segment {seg} is not a positive multiple "
+                         f"of {CHUNK}")
+    B, S, H, hd = r.shape
+    n = max(1, -(-S // seg))
+
+    def cut(a, fill):
+        a = a.float()
+        pad = torch.full((B, n * seg - S, H, hd), fill, dtype=torch.float32)
+        return torch.cat([a, pad], 1).reshape(B, n, seg, H, hd)
+    rf, kf, vf, dy = (cut(a, 0.0) for a in (r, k, v, y_grad))
+    wf, u = cut(w, 1.0), u.float()
+
+    def kv(t):
+        return kf[:, :, t][..., :, None] * vf[:, :, t][..., None, :]
+
+    def vdy(t):
+        return (vf[:, :, t] * dy[:, :, t]).sum(-1, keepdim=True)
+    # (a)
+    s = torch.zeros((B, n, H, hd, hd))
+    d = torch.ones((B, n, H, hd))
+    ckpt, pre = [], []
+    for t in range(seg):
+        if t % CHUNK == 0:
+            ckpt.append(s)
+            pre.append(d)
+        s = wf[:, :, t][..., None] * s + kv(t)
+        d = d * wf[:, :, t]
+    s_loc, D = s, d
+    g = torch.zeros_like(s)
+    du = torch.zeros((H, hd))
+    for t in reversed(range(seg)):
+        du = du + (rf[:, :, t] * kf[:, :, t] * vdy(t)).sum((0, 1))
+        g = wf[:, :, t][..., None] * g + \
+            rf[:, :, t][..., :, None] * dy[:, :, t][..., None, :]
+    g_loc = g
+    # (b)
+    starts, sc = [], state0.float()
+    for i in range(n):
+        starts.append(sc)
+        sc = D[:, i][..., None] * sc + s_loc[:, i]
+    ends, gc = [None] * n, torch.zeros((B, H, hd, hd))
+    for i in reversed(range(n)):
+        ends[i] = gc
+        gc = D[:, i][..., None] * gc + g_loc[:, i]
+    s_start, G = torch.stack(starts, 1), torch.stack(ends, 1)
+    # (c)
+    dr, dk, dv, dw = (torch.zeros((B, n, seg, H, hd)) for _ in range(4))
+    for c in reversed(range(seg // CHUNK)):
+        s = ckpt[c] + pre[c][..., None] * s_start
+        before = []
+        for t in range(c * CHUNK, (c + 1) * CHUNK):
+            before.append(s)
+            s = wf[:, :, t][..., None] * s + kv(t)
+        for t in reversed(range(c * CHUNK, (c + 1) * CHUNK)):
+            rt, kt, vt, dyt = (a[:, :, t] for a in (rf, kf, vf, dy))
+            sb = before[t - c * CHUNK]
+            dr[:, :, t] = torch.einsum("bnhkv,bnhv->bnhk", sb, dyt) + \
+                u * kt * vdy(t)
+            dk[:, :, t] = u * rt * vdy(t) + \
+                torch.einsum("bnhkv,bnhv->bnhk", G, vt)
+            dv[:, :, t] = dyt * (rt * u * kt).sum(-1, keepdim=True) + \
+                torch.einsum("bnhkv,bnhk->bnhv", G, kt)
+            dw[:, :, t] = (G * sb).sum(-1)
+            G = wf[:, :, t][..., None] * G + \
+                rt[..., :, None] * dyt[..., None, :]
+
+    def back(a, dtype):
+        return a.reshape(B, n * seg, H, hd)[:, :S].to(dtype)
+    return (back(dr, r.dtype), back(dk, k.dtype), back(dv, v.dtype),
+            back(dw, torch.float32), du, gc)

@@ -1326,27 +1326,80 @@ def _wkv_bwd_inputs(cuda, B, S, H, hd, dtype, seed, w_lo=None):
     return r, k, v, w, u, s0, dy
 
 
-@pytest.mark.parametrize("S", [1, 37, 300])
+# (B, H) of a backward case by its S: S = 1000 and 1001 at B = 1, H = 2
+# span many time segments of the wkv6 backward with a short last one
+def _bwd_bh(S):
+    return (1, 2) if S >= 1000 else (2, 3)
+
+
+WKV_BWD_KERNELS = ("bwd", "bwd_local", "bwd_carry")
+
+
+@pytest.mark.parametrize("S", [1, 37, 300, 1000])
 @pytest.mark.parametrize("hd", [32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_bwd_kernel_matches_plain(cuda, S, hd, dtype):
-    """S = 37 and 300 are not multiples of the backward's 8-token chunk."""
+    """S = 37 is not a multiple of the backward's 8-token chunk and lies in
+    one segment; S = 300 spans several segments; S = 1000 (B = 1, H = 2)
+    spans 16 segments of 64 tokens, the last of 40. Each call launches the
+    local, carry and main kernels once."""
     from repro_torch.kernels.wkv import kernel as wk
     from repro_torch.kernels.wkv.ref import wkv6_bwd_plain
-    args = _wkv_bwd_inputs(cuda, 2, S, 3, hd, dtype, S + hd)
-    before = (wk.launch_count("bwd"), wk.launch_count("bwd_reduce"))
+    B, H = _bwd_bh(S)
+    args = _wkv_bwd_inputs(cuda, B, S, H, hd, dtype, S + hd)
+    plan = wk.bwd_plan(dtype, B, S, H, hd, cuda)
+    n, seg = plan["segments"], plan["segment"]
+    assert seg % plan["chunk"] == 0 and (n - 1) * seg < S <= n * seg
+    assert n > 1 or S < 128
+    before = [wk.launch_count(k) for k in WKV_BWD_KERNELS]
     got = wk.wkv6_bwd(*args)
-    assert (wk.launch_count("bwd"), wk.launch_count("bwd_reduce")) == (
-        before[0] + 1, before[1] + 1)
+    assert [wk.launch_count(k) - b
+            for k, b in zip(WKV_BWD_KERNELS, before)] == [1, 1, 1]
     _rec_bwd_close(got, wkv6_bwd_plain(*args))
 
 
+@pytest.mark.parametrize("S", [45, 1000])
 @pytest.mark.parametrize("w_lo", [1e-30, 1e-6])
-def test_wkv6_bwd_kernel_at_extreme_decays(cuda, w_lo):
+def test_wkv6_bwd_kernel_at_extreme_decays(cuda, w_lo, S):
+    """Decays of 1e-30 underflow the segments' decay products to 0."""
     from repro_torch.kernels.wkv import kernel as wk
     from repro_torch.kernels.wkv.ref import wkv6_bwd_plain
-    args = _wkv_bwd_inputs(cuda, 2, 45, 2, 64, torch.float32, 7, w_lo)
+    args = _wkv_bwd_inputs(cuda, 2, S, 2, 64, torch.float32, 7, w_lo)
     _rec_bwd_close(wk.wkv6_bwd(*args), wkv6_bwd_plain(*args))
+
+
+def test_wkv6_bwd_plan_fills_the_card(cuda):
+    """At rwkv6-3b's training shape the plan's segments give the main
+    kernel at least two CTAs a resident slot; every kernel fits."""
+    from repro_torch.kernels.wkv import kernel as wk
+    plan = wk.bwd_plan(torch.bfloat16, 4, 2048, 40, 64, cuda)
+    assert all(n > 0 for n in plan["resident"].values())
+    grid = plan["grid"]["main"]
+    slots = plan["resident"]["main"] * plan["sms"]
+    assert grid[0] * grid[1] * grid[2] >= 2 * slots
+    assert plan["segment"] >= 64 and plan["cluster"] == 2
+
+
+def test_wkv6_bwd_plan_and_launch_on_every_card(cuda):
+    """The launcher prepares each card on its own (shared-memory limit,
+    occupancy, SMs): the plan and the backward on every visible card, the
+    first card's last, agree with that card's own figures and the plain
+    backward."""
+    from repro_torch.kernels.wkv import kernel as wk
+    from repro_torch.kernels.wkv.ref import wkv6_bwd_plain
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    for i in (*range(1, n), 0):
+        dev = torch.device("cuda", i)
+        plan = wk.bwd_plan(torch.bfloat16, 4, 2048, 40, 64, dev)
+        props = torch.cuda.get_device_properties(dev)
+        assert plan["sms"] == props.multi_processor_count
+        assert all(v > 0 for v in plan["resident"].values())
+        args = _wkv_bwd_inputs(dev, 1, 300, 2, 64, torch.bfloat16, 11)
+        got = wk.wkv6_bwd(*args)
+        assert all(t.device == dev for t in got)
+        _rec_bwd_close(got, wkv6_bwd_plain(*args))
 
 
 def _scan_bwd_inputs(cuda, B, S, di, ds, dtype, seed, dt_scale=1.0):
@@ -1356,20 +1409,22 @@ def _scan_bwd_inputs(cuda, B, S, di, ds, dtype, seed, dt_scale=1.0):
     return (dt, *rest, torch.randn((B, S, di), generator=g, device=cuda))
 
 
-@pytest.mark.parametrize("S", [1, 37, 300])
+@pytest.mark.parametrize("S", [1, 37, 300, 1001])
 @pytest.mark.parametrize("di,ds", [(256, 4), (300, 16), (131, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_selective_scan_bwd_kernel_matches_plain(cuda, S, di, ds, dtype):
     """d_inner that does not fill the backward's 64-channel CTAs, d_state
-    below 16, S not a multiple of its 8-token chunk."""
+    below 16, S not a multiple of its 8-token checkpoint interval; S = 1001
+    at B = 1 ends in a one-token chunk after 125 whole ones."""
     from repro_torch.kernels.selective_scan import kernel as ssk
     from repro_torch.kernels.selective_scan.ref import (
         selective_scan_bwd_plain)
-    args = _scan_bwd_inputs(cuda, 2, S, di, ds, dtype, S + di)
-    before = (ssk.launch_count("bwd"), ssk.launch_count("bwd_reduce"))
+    args = _scan_bwd_inputs(cuda, _bwd_bh(S)[0], S, di, ds, dtype, S + di)
+    kernels = ("bwd_ckpt", "bwd", "bwd_reduce")
+    before = [ssk.launch_count(k) for k in kernels]
     got = ssk.selective_scan_bwd(*args)
-    assert (ssk.launch_count("bwd"), ssk.launch_count("bwd_reduce")) == (
-        before[0] + 1, before[1] + 1)
+    assert [ssk.launch_count(k) - b for k, b in zip(kernels, before)] == [
+        1, 1, 1]
     _rec_bwd_close(got, selective_scan_bwd_plain(*args))
 
 
@@ -1385,15 +1440,19 @@ def test_selective_scan_bwd_kernel_at_underflowing_decays(cuda):
                    selective_scan_bwd_plain(*args))
 
 
+@pytest.mark.parametrize("S", [77, 1001])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_recurrence_bwd_kernels_repeat_bit_for_bit(cuda, dtype):
-    """No atomics: two calls on the same inputs give the same bits."""
+def test_recurrence_bwd_kernels_repeat_bit_for_bit(cuda, dtype, S):
+    """No atomics: two calls on the same inputs give the same bits (S =
+    1001 at B = 1: many wkv6 segments, the last short; both kernels end
+    in a one-token chunk)."""
     from repro_torch.kernels.selective_scan import kernel as ssk
     from repro_torch.kernels.wkv import kernel as wk
+    B = _bwd_bh(S)[0]
     for fn, args in (
-            (wk.wkv6_bwd, _wkv_bwd_inputs(cuda, 2, 77, 4, 64, dtype, 5)),
+            (wk.wkv6_bwd, _wkv_bwd_inputs(cuda, B, S, 4, 64, dtype, 5)),
             (ssk.selective_scan_bwd,
-             _scan_bwd_inputs(cuda, 2, 77, 512, 16, dtype, 5))):
+             _scan_bwd_inputs(cuda, B, S, 512, 16, dtype, 5))):
         first, second = fn(*args), fn(*args)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, second))

@@ -11,8 +11,14 @@ magnitude, against ``jax.vjp`` of the reference's ``_selective_scan``
 and, through the port's ``mamba_block`` (whose training entry is the
 function), against ``jax.vjp`` of the reference's ``mamba_block``, each
 within 1e-4 of each leaf's largest. Decays that underflow to 0 give
-finite gradients. The kernels themselves run on the card only
-(``tests/test_torch_cuda.py``)."""
+finite gradients. ``selective_scan_bwd_segmented_plain`` (the time
+segments of the reference's chunked scan: local walks, the carry over
+segments, checkpoints rebuilt from them; no kernel of the port takes
+segments) is held to the plain backward and autograd within
+1e-5 and to ``jax.vjp`` of the reference's scan within 1e-4, at a
+sequence shorter than a segment, one that ends in a short segment,
+several whole segments, one segment and decays that underflow to 0. The
+kernels themselves run on the card only (``tests/test_torch_cuda.py``)."""
 
 from __future__ import annotations
 
@@ -26,8 +32,9 @@ import repro.configs as jconfigs
 from repro.models import ssm as jssm
 from repro_torch import configs
 from repro_torch.kernels.selective_scan import kernel as ssk
-from repro_torch.kernels.selective_scan.ref import (selective_scan_bwd_plain,
-                                                    selective_scan_plain)
+from repro_torch.kernels.selective_scan.ref import (
+    selective_scan_bwd_plain, selective_scan_bwd_segmented_plain,
+    selective_scan_plain)
 from repro_torch.models import ssm
 
 torch.set_num_threads(1)
@@ -40,6 +47,12 @@ REL = 1e-5
 VJP_REL = 1e-4
 ARCH = "jamba-1.5-large-398b"
 NAMES = ("ddt", "dxc", "dA", "dBm", "dCm", "dD", "dh0")
+# (S, tokens a segment, dt scale): shorter than one segment, a short last
+# segment, three whole segments, one segment (the kernel's), decays that
+# underflow to 0 (dt x 400) over several segments
+SEGMENTS = {"short": (5, 16, 1.0), "ragged": (40, 16, 1.0),
+            "several": (48, 16, 1.0), "whole": (37, None, 1.0),
+            "underflow": (21, 8, 400.0)}
 
 
 def _t(a):
@@ -188,3 +201,46 @@ def test_mamba_block_gradients_match_jax_vjp(S):
     jx, jp = vjp(jnp.asarray(ct))
     _close([g.numpy() for g in got], [jx] + [jp[k] for k in leaves],
            VJP_REL, ["x", *leaves])
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENTS))
+@pytest.mark.parametrize("di,ds", [(24, 4), (40, 16)])
+def test_selective_scan_bwd_segmented_mirror_matches_plain(case, di, ds):
+    """The segmented mirror against the plain backward and autograd of
+    the plain forward, each output within ``REL`` of its largest."""
+    S, seg, scale = SEGMENTS[case]
+    args = [_t(a) for a in _inputs(2, S, di, ds, S + di, dt_scale=scale)]
+    if case == "underflow":
+        assert float(torch.exp(args[0][..., None] * args[2]).min()) == 0.0
+    got = selective_scan_bwd_segmented_plain(*args, seg=seg)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    for want in (selective_scan_bwd_plain(*args), _autograd(*args)):
+        _close([g.numpy() for g in got], [g.numpy() for g in want], REL)
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENTS))
+def test_selective_scan_bwd_segmented_mirror_matches_jax_vjp(case):
+    """The segmented mirror against ``jax.vjp`` of the reference's scan
+    (``_reference_y``), each output within ``VJP_REL`` of its largest."""
+    S, seg, scale = SEGMENTS[case]
+    a = _inputs(2, S, 24, 4, S + 7, dt_scale=scale)
+    got = selective_scan_bwd_segmented_plain(*map(_t, a), seg=seg)
+    _, vjp = jax.vjp(_reference_y, *map(jnp.asarray, a[:7]))
+    _close([g.numpy() for g in got], vjp(jnp.asarray(a[7])), VJP_REL)
+
+
+def test_selective_scan_bwd_segmented_mirror_in_bf16():
+    """bf16 dt, xc, B, C over several segments: their gradients in bf16,
+    one bf16 ulp of the plain backward's beside ``REL`` of the largest;
+    the f32 leaves within ``REL``."""
+    args = [_t(a) for a in _inputs(2, 30, 24, 4, 12)]
+    for i in (0, 1, 3, 4):
+        args[i] = args[i].to(torch.bfloat16)
+    got = selective_scan_bwd_segmented_plain(*args, seg=16)
+    want = selective_scan_bwd_plain(*args)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype, NAMES[i]
+        ulp = 2 ** -7 if w.dtype == torch.bfloat16 else 0.0
+        assert bool(((g.float() - w.float()).abs()
+                     <= ulp * w.float().abs()
+                     + REL * float(w.float().abs().max())).all()), NAMES[i]

@@ -9,8 +9,14 @@ and, through the port's ``time_mix`` (whose training entry is the
 function), against ``jax.vjp`` of the reference's ``time_mix`` (the
 reference's ``step`` is a closure inside it) within 1e-4 of each leaf's
 largest. Decays near 0 (which a backward that divided by ``w`` could not
-take) give finite gradients that still match autograd. The kernels
-themselves run on the card only (``tests/test_torch_cuda.py``)."""
+take) give finite gradients that still match autograd.
+``wkv6_bwd_segmented_plain`` (the CUDA backward's time segments: local
+walks, the carry over segments, checkpoints rebuilt from them) is held
+to the plain backward and autograd within 1e-5, and through ``time_mix``
+to ``jax.vjp`` within 1e-4, at a sequence shorter than a segment, one
+that ends in a short segment, several whole segments and decays that
+underflow to 0. The kernels themselves run on the card only
+(``tests/test_torch_cuda.py``)."""
 
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ import repro.configs as jconfigs
 from repro.models import rwkv as jrwkv
 from repro_torch import configs
 from repro_torch.kernels.wkv import kernel as wk
-from repro_torch.kernels.wkv.ref import wkv6_bwd_plain, wkv6_plain
+from repro_torch.kernels.wkv.ref import (wkv6_bwd_plain,
+                                         wkv6_bwd_segmented_plain,
+                                         wkv6_plain)
 from repro_torch.models import rwkv
 
 torch.set_num_threads(1)
@@ -37,6 +45,12 @@ REL = 1e-5
 VJP_REL = 1e-4
 ARCH = "rwkv6-3b"
 NAMES = ("dr", "dk", "dv", "dw", "du", "dstate")
+# (S, tokens a segment): shorter than one segment, a short last segment,
+# three whole segments; "underflow" adds decays of 1e-30 (the CPU cases)
+# or pushes half the channels' w0 to 5, exp(-exp(5)) ~ 1e-65, 0 in f32
+# (through time_mix)
+SEGMENTS = {"short": (5, 8), "ragged": (19, 8), "several": (24, 8),
+            "underflow": (21, 8)}
 
 
 def _t(a):
@@ -155,7 +169,10 @@ def test_time_mix_gradients_match_jax_vjp(S):
     ``wkv6_bwd_plain``) against ``jax.vjp`` of the reference's, the same
     output cotangent: the input's and every weight's gradient within
     ``VJP_REL`` of its largest magnitude."""
-    cfg, jcfg, p = _params(S)
+    _time_mix_vs_jax(S, *_params(S))
+
+
+def _time_mix_vs_jax(S, cfg, jcfg, p):
     rng = np.random.default_rng(S + 3)
     x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
     ct = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
@@ -168,6 +185,7 @@ def test_time_mix_gradients_match_jax_vjp(S):
     out, _ = rwkv.time_mix(tx, tp, cfg)
     got = torch.autograd.grad(out, [tx] + [tp[k] for k in leaves], _t(ct))
     assert wk.call_count("backward") == before + 1
+    assert all(bool(torch.isfinite(g).all()) for g in got)
 
     def f(x, p):
         return jrwkv.time_mix(x, p, jcfg)[0]
@@ -176,3 +194,52 @@ def test_time_mix_gradients_match_jax_vjp(S):
     jx, jp = vjp(jnp.asarray(ct))
     want = [jx] + [jp[k] for k in leaves]
     _close([g.numpy() for g in got], want, VJP_REL, ["x", *leaves])
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENTS))
+@pytest.mark.parametrize("hd", [8, 32])
+def test_wkv6_bwd_segmented_mirror_matches_plain(case, hd):
+    """The segmented mirror against the plain backward and autograd of
+    the plain forward, each output within ``REL`` of its largest."""
+    S, seg = SEGMENTS[case]
+    args = _inputs(2, S, 3, hd, S + hd + seg,
+                   1e-30 if case == "underflow" else None)
+    got = wkv6_bwd_segmented_plain(*args, seg)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert [g.dtype for g in got] == [torch.float32] * 6
+    for want in (wkv6_bwd_plain(*args), _autograd(*args)):
+        _close([g.numpy() for g in got], [g.numpy() for g in want], REL)
+
+
+def test_wkv6_bwd_segmented_mirror_in_bf16():
+    """bf16 r, k, v over several segments: dr, dk, dv come back in bf16,
+    within one bf16 ulp of the plain backward's beside ``REL`` of the
+    largest; the f32 outputs within ``REL``."""
+    args = _inputs(2, 19, 2, 32, 11)
+    args[:3] = [a.to(torch.bfloat16) for a in args[:3]]
+    got = wkv6_bwd_segmented_plain(*args, 8)
+    want = wkv6_bwd_plain(*args)
+    assert [g.dtype for g in got[:3]] == [torch.bfloat16] * 3
+    for g, w in zip(got[:3], want[:3]):
+        assert bool(((g.float() - w.float()).abs()
+                     <= 2 ** -7 * w.float().abs()
+                     + REL * float(w.float().abs().max())).all())
+    _close([g.numpy() for g in got[3:]], [g.numpy() for g in want[3:]], REL,
+           NAMES[3:])
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENTS))
+def test_segmented_mirror_through_time_mix_matches_jax_vjp(case,
+                                                           monkeypatch):
+    """``Wkv6``'s backward on the CPU swapped for the segmented mirror:
+    the port's ``time_mix`` gradients against ``jax.vjp`` of the
+    reference's (whose ``lax.scan``, rwkv.py:58-69, is the recurrence),
+    each within ``VJP_REL`` of its largest."""
+    S, seg = SEGMENTS[case]
+    cfg, jcfg, p = _params(S + seg)
+    if case == "underflow":
+        p["w0"] = np.where(np.arange(p["w0"].shape[-1]) % 2 == 0, 5.0,
+                           p["w0"]).astype(np.float32)
+    monkeypatch.setattr(wk, "wkv6_bwd_plain",
+                        lambda *a: wkv6_bwd_segmented_plain(*a, seg))
+    _time_mix_vs_jax(S, cfg, jcfg, p)
