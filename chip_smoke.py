@@ -99,6 +99,33 @@ Phases, each printed as one JSON line (``"phase": ...``):
              bound); flash attention's tc and decode on
              phi's layer-0 inputs (d=128, GQA) beside
              ``scaled_dot_product_attention``.
+3d. multimodal -- (a) seamless-m4t-large-v2, the encoder-decoder, at
+             full width and depth (24 + 24 layers, d_model 1024, 16 heads
+             of 64, vocab 256,206) and (b) internvl2-26b, the vision
+             frontend stub, at full width and depth (48 layers, d_model
+             6144, 48 heads over 8 kv heads of 128, vocab 92,553), bf16,
+             seeded weights (the parameter counts must equal the
+             reference's), after phi's memory is returned: 1 warm-up and
+             2 measured greedy generates, each under sync debug mode
+             "error", through ``encdec.prefill`` + ``decode_step`` (8
+             requests of 1,024 frame embeddings, a 16-token prompt, 128
+             new tokens) and ``transformer.prefill(..., prefix_embed=)``
+             + ``decode_step`` (4 requests of 256 patch embeddings and
+             1,024 tokens, 32 new). Every seamless prefill launches
+             flash attention's tc 72 times (encoder, decoder self and
+             cross attention) and every decode step its decode variant
+             48 times; internvl2's 48 and 48; no other kernel. Encode ms
+             (seamless), prefill ms, decode ms a token p50/p99,
+             tokens/s, peak bytes, launches, one profiled prefill and
+             decode step. Then each arch's weights cut to 2 (+ 2) layers
+             of the full width in f32: greedy decode agrees with the
+             teacher-forced forward's argmax at >= 99% of positions and
+             every step's logits lie within 1e-4 of the forward's scale.
+             The kernel at the new shapes (tc at seamless's encoder and
+             cross attention, decode at its cross attention, tc and
+             decode at internvl2's layer 0), each against its plain
+             version as in 11, by events, queued (device-bound) and in a
+             profile, beside ``scaled_dot_product_attention``.
 4. main   -- the serving loop at a deployment's size: ``SpatialServer``
              over a SPaC-tree (``spac-h``, phi=32, version window 4) of
              10^7 uniform 2D int32 points in [0, 2^20), then 1 warm-up
@@ -274,7 +301,7 @@ from repro_torch.core.index import DistributedIndex  # noqa: E402
 from repro_torch.data import points as gen  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bbox import kernel as bk  # noqa: E402
-from repro_torch.data.tokens import lm_batch  # noqa: E402
+from repro_torch.data.tokens import embedding_batch, lm_batch  # noqa: E402
 from repro_torch.kernels.flash_attn import backward as fab  # noqa: E402
 from repro_torch.kernels.flash_attn import kernel as fak  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
@@ -296,7 +323,7 @@ from repro_torch.kernels.wkv import kernel as wk  # noqa: E402
 from repro_torch.kernels.wkv.ref import (  # noqa: E402
     wkv6_bwd_plain, wkv6_plain)
 from repro_torch.launch import train as train_launcher  # noqa: E402
-from repro_torch.models import ssm, transformer  # noqa: E402
+from repro_torch.models import encdec, ssm, transformer  # noqa: E402
 from repro_torch.train import step as train_lib  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serving import (LatencyRecorder, MicroBatcher,  # noqa: E402
@@ -3673,6 +3700,336 @@ def mixers_phase(dev) -> tuple[dict, list, dict]:
 
 
 # ---------------------------------------------------------------------------
+# the multimodal archs: seamless-m4t-large-v2 (encoder-decoder) and
+# internvl2-26b (vision frontend stub), served through flash attention
+# ---------------------------------------------------------------------------
+
+# seamless-m4t-large-v2 at full width and depth (24 + 24 layers, 1.77 B
+# parameters): 8 requests of 1,024 frame embeddings, a 16-token decoder
+# prompt, 128 greedy new tokens. internvl2-26b at full width and depth (48
+# layers, 19.31 B parameters, 38.6 GB of bf16 weights): 4 requests of 256
+# patch embeddings and 1,024 prompt tokens, 32 new tokens
+MM_SEAMLESS = "seamless-m4t-large-v2"
+MM_SEAMLESS_BATCH, MM_SEAMLESS_FRAMES = 8, 1024
+MM_SEAMLESS_PROMPT, MM_SEAMLESS_NEW = 16, 128
+MM_INTERNVL = "internvl2-26b"
+MM_INTERNVL_BATCH, MM_INTERNVL_PROMPT, MM_INTERNVL_NEW = 4, 1024, 32
+MM_WARMUP, MM_REPS = 1, 2
+# jax.eval_shape of the reference's init_params (tests/test_torch_encdec.py)
+MM_PARAMS = {MM_SEAMLESS: 1_773_478_912, MM_INTERNVL: 19_312_281_600}
+# the f32 checks: the same weights cut to 2 layers (2 + 2 for seamless) of
+# the full width; B, frames (seamless), prompt tokens, new tokens
+MM_F32_LAYERS = 2
+MM_F32_BATCH, MM_F32_FRAMES, MM_F32_PROMPT, MM_F32_NEW = 2, 256, 16, 32
+
+
+class MultimodalProbe(MixerProbe):
+    """:class:`MixerProbe` that, in the captured prefill and decode step,
+    keeps the first flash-attention call of each kind: ``encoder``
+    (non-causal over its own sequence), ``self`` (causal) and ``cross``
+    (non-causal over the encoder memory), keyed ``<phase>_<kind>``."""
+
+    def forward(self, orig, phase: str):
+        inner = super().forward(orig, phase)
+
+        def run(model, *args):
+            out = inner(model, *args)
+            self._slot = None
+            return out
+        return run
+
+    def attention(self, orig):
+        def run(q, k, v, **kw):
+            if self._slot is not None:
+                kind = "self" if kw["causal"] else (
+                    "encoder" if self._slot == "prefill"
+                    and q.shape[2] == k.shape[2] else "cross")
+                self.captured.setdefault(f"{self._slot}_{kind}",
+                                         (q, k, v, kw))
+            return orig(q, k, v, **kw)
+        return run
+
+
+def mm_fns(cfg) -> tuple:
+    """(build, prefill, decode, forward) of an encoder-decoder (``ctx``:
+    its frame embeddings) or of a frontend arch (``ctx``: the patch
+    embeddings before the prompt); ``forward`` gives the tokens' logits."""
+    if cfg.kind == "encdec":
+        return (encdec.EncDecLM, encdec.prefill, encdec.decode_step,
+                encdec.forward)
+    return (transformer.DecoderLM,
+            lambda m, ctx, toks, n: transformer.prefill(m, toks, n, ctx),
+            transformer.decode_step,
+            lambda m, ctx, toks: transformer.forward(m, toks, ctx)[
+                :, ctx.shape[1]:])
+
+
+@torch.inference_mode()
+def mm_generate(prefill, decode, model, ctx, prompts, max_len: int,
+                n_new: int, keep_logits: bool = False):
+    """Greedy decode of ``n_new`` tokens: one prefill, then ``n_new - 1``
+    decode steps; nothing read back. Returns the tokens (B, n_new) int32
+    and, with ``keep_logits``, each new token's logits (B, n_new, V)."""
+    logits, cache = prefill(model, ctx, prompts, max_len)
+    out, kept = [], []
+    for i in range(n_new):
+        last = logits[:, -1]
+        kept.append(last)
+        tok = last.argmax(-1, keepdim=True)
+        out.append(tok)
+        if i + 1 < n_new:
+            logits, cache = decode(model, cache, tok)
+    return (torch.cat(out, 1).to(torch.int32),
+            torch.stack(kept, 1) if keep_logits else None)
+
+
+def mm_f32_check(cfg, model, fns, ctx, prompts, dev, seed: int) -> dict:
+    """The weights of ``model`` cut to ``MM_F32_LAYERS`` layers (and
+    encoder layers) of the full width, in f32: greedy decode of
+    ``MM_F32_NEW`` tokens must agree with the argmax of the teacher-forced
+    forward at >= ``LM_AGREE`` of positions, and every prefill and decode
+    step's logits lie within ``MIX_DECODE_REL`` of the forward's largest
+    logit (``tests/test_models.py::test_encdec_decode_matches_forward``'s
+    bar)."""
+    build, prefill, decode, forward = fns
+    cuts = {"n_layers": MM_F32_LAYERS}
+    if cfg.kind == "encdec":
+        cuts["encoder_layers"] = MM_F32_LAYERS
+    cfg32 = cfg.with_(act_dtype="float32", **cuts)
+    m32 = build(cfg32, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    sd = model.state_dict()
+    m32.load_state_dict({k: sd[k].float() for k in m32.state_dict()})
+    pre = 0 if cfg.kind == "encdec" else ctx.shape[1]
+    P = prompts.shape[1]
+    reset_counts()
+    out, steps = mm_generate(prefill, decode, m32, ctx, prompts,
+                             pre + P + MM_F32_NEW, MM_F32_NEW,
+                             keep_logits=True)
+    launches, variants = counts(), variant_counts()
+    with torch.inference_mode():
+        ref = forward(m32, ctx, torch.cat([prompts, out.long()], 1))[
+            :, P - 1:-1]
+    check(bool(torch.isfinite(ref).all()) and bool(
+        torch.isfinite(steps).all()), f"multimodal: {cfg.name}: f32 logits "
+        f"not finite")
+    agree = float((ref.argmax(-1) == out).float().mean())
+    scale = float(ref.abs().max())
+    rel = float((steps - ref).abs().max()) / scale
+    del m32, ref, steps
+    check(agree >= LM_AGREE, f"multimodal: {cfg.name}: f32 greedy decode "
+          f"agrees with the teacher-forced forward at {agree:.4f}")
+    check(rel < MIX_DECODE_REL, f"multimodal: {cfg.name}: f32 prefill and "
+          f"decode logits differ from the forward's by {rel:.3g} of its "
+          f"scale {scale:.4g}")
+    return {"layers": MM_F32_LAYERS, "batch": prompts.shape[0],
+            "context": ctx.shape[1], "prompt": P, "new": MM_F32_NEW,
+            "agreement": agree, "bar": LM_AGREE, "logits_rel_err": rel,
+            "scale": scale, "bar_rel": MIX_DECODE_REL, "launches": launches,
+            "launches_by_variant": variants}
+
+
+def mm_part(arch: str, batch: int, ctx_len: int, prompt: int, n_new: int,
+            dev, seed: int) -> tuple[dict, dict]:
+    """One multimodal arch at full width and depth in bf16 (seeded
+    weights): ``MM_WARMUP`` + ``MM_REPS`` greedy generates under sync
+    debug mode "error", each forward's flash-attention launches checked
+    (every prefill its tc variant once an attention, every decode step its
+    decode variant, no other kernel), one profiled prefill and decode
+    step, the f32 check; returns the part's line and the captured
+    attention inputs."""
+    cfg = configs.ARCHS[arch]
+    fns = build, prefill, decode, _ = mm_fns(cfg)
+    enc = cfg.kind == "encdec"
+    n_tc = cfg.encoder_layers + 2 * cfg.n_layers if enc else cfg.n_layers
+    n_decode = 2 * cfg.n_layers if enc else cfg.n_layers
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    sync()
+    init_s = time.perf_counter() - t0
+    params = transformer.param_count(model)
+    check(params == MM_PARAMS[arch], f"multimodal: {arch} has {params} "
+          f"parameters, the reference {MM_PARAMS[arch]}")
+    # uploaded before the loop: a copy from pageable memory synchronises
+    ctx = embedding_batch(seed, 0, batch, ctx_len, cfg.frontend_dim,
+                          device=dev)
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, prompt)), device=dev)
+    pre = 0 if enc else ctx_len
+    max_len = pre + prompt + n_new
+    probe = MultimodalProbe(max_len - 2)
+    runs = MM_WARMUP + MM_REPS
+    outs, gen_s = [], []
+    pf, dc = probe.forward(prefill, "prefill"), probe.forward(decode,
+                                                               "decode")
+    reset_counts()
+    with patched(fak, "flash_attention", probe.attention(fak.flash_attention)):
+        for r in range(runs):
+            probe.capture = r == runs - 1
+            sync()
+            t1 = time.perf_counter()
+            with sync_debug_error():
+                out, _ = mm_generate(pf, dc, model, ctx, prompts, max_len,
+                                     n_new)
+            sync()
+            if r >= MM_WARMUP:
+                gen_s.append(time.perf_counter() - t1)
+                outs.append(out)
+    launches, by_variant = counts(), variant_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = n_new - 1
+    check(len(probe.counts["prefill"]) == runs
+          and len(probe.counts["decode"]) == runs * steps,
+          f"multimodal: {arch}: not one prefill and n_new - 1 decode steps "
+          f"a generate")
+    only = {"prefill": {"tc": n_tc, "decode": 0, "simt": 0},
+            "decode": {"tc": 0, "decode": n_decode, "simt": 0}}
+    for phase, want in only.items():
+        got = [c for c in probe.variants[phase] if c != want]
+        check(not got, f"multimodal: {arch}: a bf16 {phase} forward took "
+              f"flash-attention variants {got[:1]}, not {want}")
+    others = [c for ph in ("prefill", "decode") for c in probe.counts[ph]
+              if any(n for k, n in c.items() if k != "flash_attn")]
+    check(not others, f"multimodal: {arch}: other kernels launched: "
+          f"{others[:1]}")
+    last = outs[-1]
+    check(last.shape == (batch, n_new)
+          and bool(((last >= 0) & (last < cfg.vocab)).all()),
+          f"multimodal: {arch}: generated tokens out of shape or vocabulary")
+    prefill_ms = [a.elapsed_time(b) for a, b in
+                  probe.events["prefill"][MM_WARMUP:]]
+    decode_ms = np.array([a.elapsed_time(b) for a, b in
+                          probe.events["decode"][MM_WARMUP * steps:]])
+    keep = ("flash_",)
+    in_path = {}
+    with torch.inference_mode():
+        encode_ms = None
+        if enc:
+            encode_ms = time_ms(lambda: encdec.encode(model, ctx), reps=3)
+            # the encoder's tc calls alone (the prefill's d = 64 tc calls
+            # share one kernel name over three shapes)
+            in_path["encode"] = path_kernel_ms(device_ops(
+                lambda: encdec.encode(model, ctx), top=8, keep=keep),
+                ("flash_tc",), cfg.encoder_layers)
+        prof_prefill = device_ops(
+            lambda: prefill(model, ctx, prompts, max_len), top=8, keep=keep)
+        lg, cache = prefill(model, ctx, prompts, max_len)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        check(bool(torch.isfinite(lg).all()),
+              f"multimodal: {arch}: prefill logits not finite")
+        prof_decode = device_ops(lambda: decode(model, cache, tok), top=8,
+                                 keep=keep)
+    del lg, cache
+    f32 = mm_f32_check(cfg, model, fns, ctx[:MM_F32_BATCH, :MM_F32_FRAMES]
+                       if enc else ctx[:MM_F32_BATCH],
+                       prompts[:MM_F32_BATCH, :MM_F32_PROMPT], dev, seed + 1)
+    del model, probe.events
+    free()
+    out = {"arch": arch, "dtype": cfg.act_dtype, "params": params,
+           "layers": {"encoder": cfg.encoder_layers, "decoder": cfg.n_layers}
+           if enc else cfg.n_layers, "init_s": init_s, "batch": batch,
+           ("frames" if enc else "prefix_patches"): ctx_len,
+           "prompt": prompt, "new": n_new, "max_len": max_len,
+           "warmup": MM_WARMUP, "reps": MM_REPS, "encode_ms": encode_ms,
+           "prefill_ms": float(np.mean(prefill_ms)),
+           "prefill_ms_each": prefill_ms,
+           "decode_ms_per_token": {
+               "p50": float(np.percentile(decode_ms, 50)),
+               "p99": float(np.percentile(decode_ms, 99)),
+               "mean": float(decode_ms.mean()), "count": int(decode_ms.size)},
+           "generate_s_each": gen_s,
+           "tokens_per_s": batch * n_new / float(np.mean(gen_s)),
+           "peak_allocated_bytes": peak, "launches": launches,
+           "launches_by_variant": by_variant,
+           "attention_launches_per_forward": {"prefill_tc": n_tc,
+                                              "decode": n_decode},
+           "repeat_tokens_equal": all(bool(torch.equal(o, last))
+                                      for o in outs),
+           "generates_under_sync_debug_error": runs,
+           "flash_in_path": {
+               **in_path,
+               "prefill": path_kernel_ms(prof_prefill, ("flash_tc",), n_tc),
+               "decode": path_kernel_ms(prof_decode, ("flash_decode",),
+                                        n_decode)},
+           "profile_prefill": prof_prefill, "profile_decode": prof_decode,
+           "f32_check": f32}
+    return out, probe.captured
+
+
+def mm_attn_cases(captured: dict, want: dict) -> dict:
+    """The flash-attention kernel on the captured inputs named in ``want``
+    (captured key -> (case name, the variant the wrapper must take)),
+    each through :func:`attn_at` beside ``scaled_dot_product_attention``,
+    with the kernel's and the library's device-bound ms (queued). (A
+    profile of lone launches this late in the script records no kernel:
+    the device time a call in the profile comes from the path's own
+    forwards, ``mm_part``'s ``flash_in_path``.)"""
+    cases = {}
+    for key, (name, variant) in want.items():
+        q, k, v, kw = captured.pop(key)
+        causal = kw["causal"] and q.shape[2] > 1
+
+        def lib(q=q, k=k, v=v, causal=causal):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+        c = attn_at(q, k, v, kw, lib)
+
+        def run(q=q, k=k, v=v, variant=c["variant"]):
+            return fak._launch(variant, q, k, v, **kw)
+        c["queued_ms"] = queued_ms(run)
+        c["library_queued_ms"] = queued_ms(lib)
+        check(c["all_close"] and c["variant"] == variant,
+              f"flash_attn: at {name} the kernel took {c['variant']} (not "
+              f"{variant}) or differs from its plain version (share "
+              f"{c['tolerance_share']:.3g}, simt "
+              f"{c['simt']['tolerance_share']:.3g}, f32 "
+              f"{c['f32_copy']['tolerance_share']:.3g})")
+        cases[name] = c
+        del q, k, v, c
+    captured.clear()
+    free()
+    return cases
+
+
+def multimodal_phase(dev) -> tuple[dict, dict]:
+    """(a) seamless-m4t-large-v2 and (b) internvl2-26b served at full
+    width and depth; the flash-attention cases at their new shapes
+    (seamless's encoder, its cross attention in a prefill and a decode
+    step, internvl2's layer 0 in a prefill and a decode step). Returns the
+    phase's line and the cases."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    seamless, captured = mm_part(MM_SEAMLESS, MM_SEAMLESS_BATCH,
+                                 MM_SEAMLESS_FRAMES, MM_SEAMLESS_PROMPT,
+                                 MM_SEAMLESS_NEW, dev, SEED + 61)
+    cases = mm_attn_cases(captured, {
+        "prefill_encoder": ("at_seamless_encoder", "tc"),
+        "prefill_cross": ("at_seamless_cross", "tc"),
+        "decode_cross": ("at_seamless_cross_decode", "decode")})
+    internvl, captured = mm_part(MM_INTERNVL, MM_INTERNVL_BATCH,
+                                 configs.ARCHS[MM_INTERNVL].frontend_seq,
+                                 MM_INTERNVL_PROMPT, MM_INTERNVL_NEW, dev,
+                                 SEED + 67)
+    cases.update(mm_attn_cases(captured, {
+        "prefill_self": ("at_internvl2_prefill", "tc"),
+        "decode_self": ("at_internvl2_decode", "decode")}))
+    # device ms a call in the path's own profiled forwards, where the
+    # path's calls of that kernel all have the case's shape
+    for case, (part, fwd) in {
+            "at_seamless_encoder": (seamless, "encode"),
+            "at_internvl2_prefill": (internvl, "prefill"),
+            "at_internvl2_decode": (internvl, "decode")}.items():
+        cases[case]["device_in_path"] = part["flash_in_path"][fwd]
+    out = {"phase": "multimodal", "seconds": time.perf_counter() - t0,
+           "seamless": seamless, "internvl2": internvl}
+    return out, cases
+
+
+# ---------------------------------------------------------------------------
 # the mixers' training: rwkv6-3b and jamba's Mamba layer through the
 # recurrence kernels' backward
 # ---------------------------------------------------------------------------
@@ -4252,6 +4609,15 @@ def main() -> int:
         mixers["phi"]["launches"]["flash_attn"]
     flash_row["launches_by_variant"]["mixers-phi"] = \
         mixers["phi"]["launches_by_variant"]
+    free()
+    multimodal, mm_cases = multimodal_phase(dev)
+    emit(multimodal)
+    flash_row.update(mm_cases)
+    for part in ("seamless", "internvl2"):
+        flash_row["launches_by_path"][f"multimodal-{part}"] = \
+            multimodal[part]["launches"]["flash_attn"]
+        flash_row["launches_by_variant"][f"multimodal-{part}"] = \
+            multimodal[part]["launches_by_variant"]
     free()
     train_mixers, tm_rows, tm_attn = train_mixers_phase(dev, report)
     emit(train_mixers)

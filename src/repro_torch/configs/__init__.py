@@ -3,9 +3,11 @@
 The port's copy of ``repro/configs/__init__.py`` and its data modules.
 ``ARCHS[arch_id]`` is the exact published config; ``smoke(arch_id)`` is
 a reduced same-family config for CPU tests (small width, few experts,
-tiny vocab). The port runs every decoder arch
-(``repro_torch.models.transformer``); the encoder-decoder and frontend
-archs stay data until their stubs are ported.
+tiny vocab). The port serves every arch: the decoder archs and
+internvl2's vision frontend stub through ``repro_torch.models.transformer``
+(``prefix_embed``), seamless-m4t's encoder-decoder through
+``repro_torch.models.encdec``; it trains the decoder archs without a
+frontend. ``configs.psi`` holds the paper's own workload grid.
 
 ``cells(arch_id)`` lists the applicable input-shape cells:
 long_500k needs sub-quadratic attention (runs for ssm/hybrid/SWA archs,

@@ -31,6 +31,9 @@ from repro_torch.train.step import TrainCfg, init_train_state, make_train_step
 
 def make_batches(cfg, seed: int, steps: int, batch: int, seq: int,
                  device=None):
+    """The reference's batches: tokens and labels, and the frontend
+    archs' ``prefix`` embeddings (no train step consumes those yet:
+    ``step.check_trainable``)."""
     for step in range(steps):
         toks, labels = lm_batch(seed, step, batch, seq, cfg.vocab,
                                 device=device)
@@ -63,10 +66,10 @@ def main(argv=None):
                     help="torch device (default: the card; a host "
                     "without CUDA needs --device cpu)")
     args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
-
     cfg = configs.smoke(args.arch) if args.smoke else configs.ARCHS[args.arch]
     cfg = cfg.with_(act_dtype="float32")   # the reference's choice
+    step_lib.check_trainable(cfg)
+    dev = resolve_device(args.device)
     tcfg = TrainCfg(n_microbatch=args.microbatch,
                     compress_grads=args.compress_grads,
                     opt=OptCfg(lr=args.lr, warmup_steps=10,

@@ -1,4 +1,5 @@
-"""Transformer building blocks: norms, rotary, GQA/SWA attention, SwiGLU.
+"""Transformer building blocks: norms, rotary, GQA/SWA attention, cross
+attention (encoder-decoder), SwiGLU.
 
 Counterpart of ``repro/models/layers.py``. Attention is one call of the
 flash-attention kernel (``kernels/flash_attn``) for CUDA tensors and its
@@ -134,6 +135,27 @@ def attention_block(x, p, cfg, positions, cache=None, cache_len=None,
     return x + y, cache
 
 
+def cross_attention_block(x, p, cfg, memory=None, mem_kv=None):
+    """Cross attention (the decoder side of an encoder-decoder): q from
+    ``x``, k and v from the encoder memory, ``Hq`` kv heads and no
+    rotary (positions live in the encoder's self-attention). ``mem_kv``
+    is the memory's (k, v) projections, (B, Hq, Sm, hd) each, made once
+    and reused by every decode step.
+
+    x: (B, S, D); memory: (B, Sm, D). Returns (x', (k, v))."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"]).transpose(1, 2)
+    if mem_kv is None:
+        kk = torch.einsum("bsd,dhk->bshk", memory, p["wk"]).transpose(1, 2)
+        vv = torch.einsum("bsd,dhk->bshk", memory, p["wv"]).transpose(1, 2)
+    else:
+        kk, vv = mem_kv
+    # every query sees the whole memory: q_offset 0, not the kv suffix
+    out = _chunk_attention(q, kk, vv, causal=False, window=None, q_offset=0)
+    y = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), p["wo"])
+    return x + y, (kk, vv)
+
+
 def swiglu_block(x, p, cfg):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     a = torch.einsum("bsd,df->bsf", h, p["w1"])
@@ -166,6 +188,21 @@ def init_attention(generator, cfg, dtype, device):
         p["bk"] = torch.zeros((Hkv, hd), dtype=dtype, device=device)
         p["bv"] = torch.zeros((Hkv, hd), dtype=dtype, device=device)
     return p
+
+
+def init_cross_attention(generator, cfg, dtype, device):
+    """The reference's ``init_cross_attention`` tree: kv heads = q heads
+    (standard for an encoder-decoder), no biases."""
+    hd, Hq, D = cfg.hd, cfg.n_heads, cfg.d_model
+    std = D ** -0.5
+    return dict(
+        ln=torch.ones((D,), dtype=dtype, device=device),
+        wq=_normal(generator, (D, Hq, hd), std, dtype, device),
+        wk=_normal(generator, (D, Hq, hd), std, dtype, device),
+        wv=_normal(generator, (D, Hq, hd), std, dtype, device),
+        wo=_normal(generator, (Hq, hd, D), (Hq * hd) ** -0.5, dtype,
+                   device),
+    )
 
 
 def init_swiglu(generator, cfg, dtype, device, d_ff=None):

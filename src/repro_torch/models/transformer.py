@@ -2,16 +2,21 @@
 for every decoder pattern: attention (``a``), Mamba (``m``) and RWKV6
 (``r``) layers, each ``a`` and ``m`` layer followed by a SwiGLU FFN or,
 where ``cfg.is_moe_layer(j)``, a MoE FFN (an ``r`` layer's channel mix is
-its FFN). Encoder-decoder models and the frontend stubs are not ported
-yet.
+its FFN). A frontend arch (``cfg.frontend``: internvl2's vision stub)
+takes ``prefix_embed``, precomputed patch or frame embeddings (B, P,
+``frontend_dim``) that the ``adapter`` projects to ``d_model`` and puts
+before the tokens; the loss covers the tokens only. Encoder-decoder
+models are :mod:`repro_torch.models.encdec`.
 
 A model is ``cfg.n_layers`` layers in ``cfg.n_groups`` groups of
 ``len(cfg.pattern)``; the reference stacks each group position's
 parameters over the groups for ``lax.scan``, the port keeps one module a
 layer and loops over them. State-dict names follow the reference's tree
 with the group axis unstacked: ``groups.{g}.pos{j}.mixer.wq`` is
-``params["groups"][f"pos{j}"]["mixer"]["wq"][g]``, in the same layout;
-:func:`load_reference_params` fills a model from that tree. Leaves the
+``params["groups"][f"pos{j}"]["mixer"]["wq"][g]``, in the same layout,
+and ``adapter.w`` is ``params["adapter"]["w"]``;
+:func:`load_reference_params` fills a model (this module's or
+``encdec``'s) from that tree. Leaves the
 reference keeps in f32 whatever the activation type (Mamba's ``A_log``
 and ``D_skip``, RWKV6's ``u``) stay f32.
 
@@ -62,23 +67,32 @@ from .config import ModelCfg
 
 
 def _check_supported(cfg: ModelCfg) -> None:
-    """Refuse what the port does not run yet (ROADMAP queue 1, item 5)."""
-    what = None
-    if cfg.kind == "encdec":
-        what = "encoder-decoder models (encdec)"
-    elif cfg.frontend is not None:
-        what = f"the {cfg.frontend} frontend"
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} not ported yet (ROADMAP queue 1, item 5: "
-            f"the LM substrate's encoder-decoder and frontend stubs); the "
-            f"port runs decoder-only models")
+    if cfg.kind != "decoder":
+        raise ValueError(
+            f"{cfg.name}: DecoderLM runs decoder-only models, not kind "
+            f"{cfg.kind!r}; build an encoder-decoder with "
+            f"repro_torch.models.encdec.EncDecLM")
     bad = set(cfg.pattern) - set("amr")
     if bad:
         raise ValueError(f"{cfg.name}: unknown layer types {sorted(bad)}")
     if cfg.moe is not None and len(cfg.pattern) % cfg.moe.every:
         raise ValueError(f"{cfg.name}: moe.every must divide the pattern "
                          f"length for scanned groups")
+
+
+def default_generator(dev: torch.device) -> torch.Generator:
+    """Seed 0 on ``dev`` (a CPU generator for the ``meta`` device, where
+    a model is only sized)."""
+    return torch.Generator(
+        device="cpu" if dev.type == "meta" else dev).manual_seed(0)
+
+
+def init_adapter(generator, cfg: ModelCfg, dtype, device) -> dict:
+    """The frontend stub's projection ``frontend_dim -> d_model``."""
+    D, Fd = cfg.d_model, cfg.frontend_dim
+    return dict(w=layers._normal(generator, (Fd, D), Fd ** -0.5, dtype,
+                                 device),
+                b=torch.zeros((D,), dtype=dtype, device=device))
 
 
 class _Params(nn.Module):
@@ -115,10 +129,6 @@ class DecoderLayer(nn.Module):
             init = moe_lib.init_moe if self.moe else layers.init_swiglu
             self.ffn = _Params(init(generator, cfg, dtype, device))
 
-    @property
-    def subs(self) -> tuple:
-        return ("mixer",) if self.kind == "r" else ("mixer", "ffn")
-
     def forward(self, x, positions, cache=None, cache_len=None,
                 cache_pos=None):
         if self.kind == "a":
@@ -140,7 +150,9 @@ class DecoderLM(nn.Module):
     (default: seed 0 on the model's device), in ``cfg.act_dtype``, built
     for serving (no gradients) or, with ``train=True``, with parameters
     that require grad. ``device=None`` means the card and raises on a
-    host without one (:func:`repro_torch.device.resolve_device`)."""
+    host without one (:func:`repro_torch.device.resolve_device`); the
+    ``meta`` device sizes a model without memory. A frontend arch also
+    holds ``adapter.{w,b}``."""
 
     def __init__(self, cfg: ModelCfg, device=None, generator=None,
                  train: bool = False):
@@ -149,7 +161,7 @@ class DecoderLM(nn.Module):
         dev = resolve_device(device)
         dtype = getattr(torch, cfg.act_dtype)
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+            generator = default_generator(dev)
         self.cfg = cfg
         D = cfg.d_model
         self.embed = nn.Parameter(layers._normal(
@@ -164,6 +176,8 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(layers._normal(
                 generator, (D, cfg.vocab), D ** -0.5, dtype, dev))
+        if cfg.frontend is not None:
+            self.adapter = _Params(init_adapter(generator, cfg, dtype, dev))
         if cfg.remat not in _REMAT:
             raise ValueError(f"{cfg.name}: remat {cfg.remat!r} is not one of "
                              f"{sorted(_REMAT)}")
@@ -179,21 +193,24 @@ class DecoderLM(nn.Module):
             for j in range(len(self.cfg.pattern)):
                 yield g, j, group[f"pos{j}"]
 
-    def forward(self, tokens):
-        return forward(self, tokens)
+    def forward(self, tokens, prefix_embed=None):
+        return forward(self, tokens, prefix_embed)
 
 
-def param_count(model: DecoderLM) -> int:
+def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
 def _ref_path(name: str):
-    """``groups.{g}.pos{j}.{sub}.{leaf}`` -> (``("groups", "pos{j}",
-    sub, leaf)``, g); a top-level name -> (``(name,)``, None)."""
+    """A parameter name -> (its path in the reference's tree, its index
+    on the stacked layer axis or None): ``groups.{g}.pos{j}.mixer.wq`` ->
+    (``("groups", "pos{j}", "mixer", "wq")``, g), ``encoder.{l}.attn.wq``
+    -> (``("encoder", "attn", "wq")``, l), ``adapter.w`` ->
+    (``("adapter", "w")``, None)."""
     parts = name.split(".")
-    if parts[0] == "groups":
-        return ("groups", *parts[2:]), int(parts[1])
-    return (name,), None
+    if len(parts) > 1 and parts[1].isdigit():
+        return (parts[0], *parts[2:]), int(parts[1])
+    return tuple(parts), None
 
 
 def reference_tree(named) -> dict:
@@ -206,16 +223,28 @@ def reference_tree(named) -> dict:
     for name, t in named.items():
         path, g = _ref_path(name)
         if g is None:
-            tree[name] = t
+            _put(tree, path, t)
         else:
             stacks.setdefault(path, {})[g] = t
     for path, by_group in stacks.items():
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = torch.stack([by_group[g]
-                                      for g in range(len(by_group))])
+        _put(tree, path, torch.stack([by_group[g]
+                                      for g in range(len(by_group))]))
     return tree
+
+
+def _put(tree: dict, path: tuple, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def _leaves(tree, prefix=()):
+    """(path, leaf) of every leaf of a nested dict."""
+    for key, node in tree.items():
+        if isinstance(node, dict):
+            yield from _leaves(node, (*prefix, key))
+        else:
+            yield (*prefix, key), node
 
 
 def from_reference_tree(tree, names) -> dict:
@@ -231,7 +260,7 @@ def from_reference_tree(tree, names) -> dict:
     return out
 
 
-def reference_params(model: DecoderLM) -> dict:
+def reference_params(model: nn.Module) -> dict:
     """The model's weights as the reference's ``init_params`` tree of
     numpy arrays (the inverse of :func:`load_reference_params`); bf16
     weights come out as f32 (exact), since numpy has no bf16. Every array
@@ -268,35 +297,33 @@ def _fill(param, a, name: str) -> None:
 
 
 @torch.no_grad()
-def load_reference_params(model: DecoderLM, tree) -> DecoderLM:
-    """Fill ``model`` from the JAX package's ``init_params`` tree, given as
-    numpy arrays (or anything ``np.asarray`` takes): group-position
-    leaves ``groups/pos{j}/{mixer,ffn}/name`` carry a leading
-    ``(n_groups,)`` axis. Every leaf must have its parameter and every
-    parameter its leaf."""
-    top = {"embed": model.embed, "final_ln": model.final_ln}
-    if not model.cfg.tie_embeddings:
-        top["unembed"] = model.unembed
-    want = set(top) | {"groups"}
-    if set(tree) != want:
-        raise ValueError(f"load_reference_params: tree has {sorted(tree)}, "
-                         f"the model needs {sorted(want)}")
-    for name, param in top.items():
-        _fill(param, tree[name], name)
-    for g, j, layer in model.iter_layers():
-        leaves = tree["groups"][f"pos{j}"]
-        if set(leaves) != set(layer.subs):
-            raise ValueError(f"load_reference_params: pos{j} has "
-                             f"{sorted(leaves)}, the model {list(layer.subs)}")
-        for sub in layer.subs:
-            mod = getattr(layer, sub)
-            if set(leaves[sub]) != set(mod._parameters):
-                raise ValueError(
-                    f"load_reference_params: pos{j}.{sub} has "
-                    f"{sorted(leaves[sub])}, the model "
-                    f"{sorted(mod._parameters)}")
-            for name, a in leaves[sub].items():
-                _fill(mod[name], np.asarray(a)[g], f"pos{j}.{sub}.{name}")
+def load_reference_params(model: nn.Module, tree):
+    """Fill ``model`` (a :class:`DecoderLM` or an ``encdec.EncDecLM``)
+    from the JAX package's ``init_params`` tree, given as numpy arrays
+    (or anything ``np.asarray`` takes): stacked leaves (``groups/pos{j}/
+    {mixer,ffn}/name``, ``encoder/attn/name``, ...) carry a leading layer
+    axis, one entry a layer. Every leaf must have its parameters and
+    every parameter its leaf."""
+    want: dict = {}
+    for name, param in model.named_parameters():
+        path, g = _ref_path(name)
+        want.setdefault(path, {})[g] = param
+    have = dict(_leaves(tree))
+    if set(have) != set(want):
+        show = sorted("/".join(p) for p in set(have) ^ set(want))
+        raise ValueError(f"load_reference_params: tree has {len(have)} "
+                         f"leaves, the model {len(want)}; not in both: "
+                         f"{show}")
+    for path, by_layer in want.items():
+        a, name = np.asarray(have[path]), "/".join(path)
+        if None in by_layer:
+            _fill(by_layer[None], a, name)
+            continue
+        if a.shape[:1] != (len(by_layer),):
+            raise ValueError(f"load_reference_params: {name} has shape "
+                             f"{a.shape}, the model {len(by_layer)} layers")
+        for g, param in by_layer.items():
+            _fill(param, a[g], f"{name}[{g}]")
     return model
 
 
@@ -333,12 +360,26 @@ def _group_fn(group, x, positions):
     return x
 
 
-def forward_hidden(model: DecoderLM, tokens):
-    """tokens: (B, S) int. Returns final hidden states (B, S, D). With
-    grad mode on each layer group runs under ``cfg.remat``."""
-    cfg = model.cfg
+def _embed_inputs(model: DecoderLM, tokens, prefix_embed):
+    """The tokens' embeddings, after the ``adapter``'s projection of
+    ``prefix_embed`` (cast to the activation type first) when given."""
     x = F.embedding(tokens, model.embed)
-    B, S = tokens.shape
+    if prefix_embed is None:
+        return x
+    if model.cfg.frontend is None:
+        raise ValueError(f"{model.cfg.name}: prefix_embed needs a frontend "
+                         f"arch (this one has no adapter)")
+    pre = prefix_embed.to(x.dtype) @ model.adapter["w"] + model.adapter["b"]
+    return torch.cat([pre, x], dim=1)
+
+
+def forward_hidden(model: DecoderLM, tokens, prefix_embed=None):
+    """tokens: (B, S_tok) int; prefix_embed: (B, P, frontend_dim) or
+    None. Returns final hidden states (B, P + S_tok, D). With grad mode
+    on each layer group runs under ``cfg.remat``."""
+    cfg = model.cfg
+    x = _embed_inputs(model, tokens, prefix_embed)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     context_fn = _REMAT[cfg.remat] if torch.is_grad_enabled() else None
     for group in model.groups:
@@ -351,21 +392,30 @@ def forward_hidden(model: DecoderLM, tokens):
     return layers.rms_norm(x, model.final_ln, cfg.norm_eps)
 
 
-def forward(model: DecoderLM, tokens):
-    """Full-vocab logits (B, S, V), teacher-forced."""
-    return logits_fn(model, forward_hidden(model, tokens))
+def forward(model: DecoderLM, tokens, prefix_embed=None):
+    """Full-vocab logits (B, P + S, V), teacher-forced."""
+    return logits_fn(model, forward_hidden(model, tokens, prefix_embed))
 
 
-def loss_fn(model: DecoderLM, tokens, labels):
+def loss_fn(model: DecoderLM, tokens, labels, prefix_embed=None):
     """Mean cross-entropy over label positions, the logits taken
     ``cfg.loss_chunk`` positions at a time in f32, so (B, S, V) never
-    exists at once. labels: (B, S) int, -1 = ignore. Returns a 0-d f32
-    tensor (no host read)."""
+    exists at once. labels: (B, S_tok) int, -1 = ignore; the prefix's
+    positions (modality stubs) carry no loss. Returns a 0-d f32 tensor
+    (no host read)."""
     cfg = model.cfg
-    hidden = forward_hidden(model, tokens)
-    S = hidden.shape[1]
+    hidden = forward_hidden(model, tokens, prefix_embed)
+    if prefix_embed is not None:
+        hidden = hidden[:, prefix_embed.shape[1]:]
     w = model.embed.T if cfg.tie_embeddings else model.unembed
-    C = min(cfg.loss_chunk, S)
+    return chunked_ce(hidden, w, labels, cfg.loss_chunk)
+
+
+def chunked_ce(hidden, w, labels, chunk: int):
+    """Mean cross-entropy of the logits ``hidden @ w`` (w: (D, V)) over
+    labels >= 0, ``chunk`` positions at a time in f32."""
+    S = hidden.shape[1]
+    C = min(chunk, S)
     tot = hidden.new_zeros((), dtype=torch.float32)
     cnt = torch.zeros((), dtype=torch.long, device=hidden.device)
     for a in range(0, S, C):
@@ -415,12 +465,13 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int, device=None):
     return cache
 
 
-def forward_with_cache(model: DecoderLM, cache, tokens):
+def forward_with_cache(model: DecoderLM, cache, tokens, prefix_embed=None):
     """Shared prefill/decode forward. Returns (hidden, new_cache); the
-    cache tensors are the same, updated in place."""
+    cache tensors are the same, updated in place. A prefix takes cache
+    slots like tokens."""
     cfg = model.cfg
-    x = F.embedding(tokens, model.embed)
-    B, S = tokens.shape
+    x = _embed_inputs(model, tokens, prefix_embed)
+    B, S = x.shape[:2]
     L0 = cache["len"]
     ring_pos = cache.get("pos")
     positions = (L0 + torch.arange(S, device=x.device)).expand(B, S)
@@ -437,13 +488,14 @@ def forward_with_cache(model: DecoderLM, cache, tokens):
     return layers.rms_norm(x, model.final_ln, cfg.norm_eps), new_cache
 
 
-def prefill(model: DecoderLM, tokens, max_len: int):
-    """Run the prompt through the model, build the cache, return the
-    last-position logits (B, 1, V) and the cache ready for
-    :func:`decode_step`."""
+def prefill(model: DecoderLM, tokens, max_len: int, prefix_embed=None):
+    """Run the prompt (after ``prefix_embed``, when given) through the
+    model, build the cache, return the last-position logits (B, 1, V)
+    and the cache ready for :func:`decode_step`. ``max_len`` counts the
+    prefix's slots."""
     cache = init_cache(model.cfg, tokens.shape[0], max_len,
                        device=model.device)
-    hidden, cache = forward_with_cache(model, cache, tokens)
+    hidden, cache = forward_with_cache(model, cache, tokens, prefix_embed)
     return logits_fn(model, hidden[:, -1:]), cache
 
 

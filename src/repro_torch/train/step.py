@@ -72,6 +72,21 @@ def compress_with_ef(grads: dict, ef: dict):
 
 # ------------------------------------------------------------ factory
 
+def check_trainable(cfg: ModelCfg) -> None:
+    """Raise ``NotImplementedError`` for the archs the port serves but
+    does not train yet: the encoder-decoder (its cross attention needs
+    the attention backward at Sq != Skv) and the frontend stubs."""
+    what = ("an encoder-decoder" if cfg.kind == "encdec" else
+            f"a {cfg.frontend} frontend" if cfg.frontend is not None else
+            None)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training {what} is not ported yet (ROADMAP "
+            f"queue 1, item 5.2: training the encoder-decoder and the "
+            f"frontend stubs); the port serves it "
+            f"(models.encdec, models.transformer with prefix_embed)")
+
+
 def _check_model(model, cfg: ModelCfg) -> None:
     if model.cfg != cfg:
         raise ValueError(f"train step: the model is {model.cfg.name}'s "
@@ -82,7 +97,9 @@ def init_train_state(seed, cfg: ModelCfg, tcfg: TrainCfg, device=None):
     """``(model, opt_state)``: ``DecoderLM(cfg, train=True)`` with weights
     drawn from ``seed`` (an int, or a ``torch.Generator`` on the device),
     zero moments in ``tcfg.moment_dtype``, and ``ef`` zeros (f32) when
-    gradients are compressed. ``device=None`` means the card."""
+    gradients are compressed. ``device=None`` means the card. Raises
+    for the archs :func:`check_trainable` refuses."""
+    check_trainable(cfg)
     dev = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else \
         torch.Generator(device=dev).manual_seed(int(seed))
@@ -105,7 +122,9 @@ def _value_and_grad(model, batch):
 def make_train_step(cfg: ModelCfg, tcfg: Optional[TrainCfg] = None):
     """Returns ``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``; ``batch`` holds ``tokens`` and ``labels`` (B, S) int.
-    Metrics ``loss``, ``lr`` and ``grad_norm`` are 0-d tensors."""
+    Metrics ``loss``, ``lr`` and ``grad_norm`` are 0-d tensors. Raises
+    for the archs :func:`check_trainable` refuses."""
+    check_trainable(cfg)
     tcfg = tcfg or TrainCfg()
 
     def train_step(model, opt_state, batch):

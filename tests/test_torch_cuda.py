@@ -12,8 +12,11 @@ equal to the CPU's; the wkv6 and selective-scan kernels against their
 plain versions (outputs and states within 2e-5 of the largest value),
 their CPU mirrors (1e-6), calls that carry the state (bit for bit) and a
 bit-exact check of the scan's bf16 ``db``,
-and smoke phi3.5-moe, jamba and rwkv6 models on the card against the
-same weights on the CPU.
+smoke phi3.5-moe, jamba and rwkv6 models on the card against the
+same weights on the CPU; flash attention at the encoder-decoder's cross
+shapes (Sq < Skv, queries at offset 0, non-causal) and internvl2's group
+of 6, and smoke seamless-m4t (encoder-decoder) and internvl2 (vision
+prefix) models on the card against the CPU.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false (the decision is made in a
@@ -46,7 +49,7 @@ from repro_torch.kernels.morton import kernel as mk
 from repro_torch.kernels.sieve import kernel as sk
 from repro_torch.kernels.sieve import ops as sieve_ops
 from repro_torch.kernels.sieve import ref as sieve_ref
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.serve import ServeEngine
 from repro_torch.serving import SpatialServer
 
@@ -703,6 +706,37 @@ def test_flash_attn_tc_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, d, causal,
     assert fak.variant_for(q, k, v) == "tc"
     _variant_close(cuda, "tc", q, k, v, causal=causal, window=window,
                    q_offset=q_offset)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,d,causal", [
+    (8, 16, 16, 16, 1024, 64, False),   # seamless's cross attention
+    (2, 4, 4, 5, 333, 64, False),       # a ragged cross shape
+    (2, 48, 8, 1280, 1280, 128, True),  # internvl2's layer: group 6
+])
+def test_flash_attn_tc_cross_and_group6(cuda, B, Hq, Hkv, Sq, Skv, d,
+                                        causal):
+    """Cross attention's form (every query sees the whole memory,
+    ``q_offset=0``, Sq < Skv) and internvl2's 48 q heads over 8."""
+    q, k, v = _attn_inputs(cuda, B, Hq, Hkv, Sq, Skv, d, torch.bfloat16,
+                           seed=Skv + Sq)
+    assert fak.variant_for(q, k, v) == "tc"
+    _variant_close(cuda, "tc", q, k, v, causal=causal, q_offset=0)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Skv,d,causal", [
+    (8, 16, 16, 1024, 64, False),   # seamless's cross attention, group 1
+    (2, 4, 4, 333, 64, False),
+    (4, 48, 8, 1311, 128, True),    # internvl2's decode step, group 6
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_decode_cross_and_group6(cuda, B, Hq, Hkv, Skv, d,
+                                            causal, dtype):
+    """decode over the full span of a non-causal memory (the cross
+    cache's contiguous ``mem_k[l]``), and at internvl2's group of 6."""
+    q, k, v = _attn_inputs(cuda, B, Hq, Hkv, 1, Skv, d, dtype, seed=Skv)
+    assert fak.variant_for(q, k, v) == "decode"
+    _variant_close(cuda, "decode", q, k, v, causal=causal,
+                   q_offset=0 if not causal else None)
 
 
 @pytest.mark.parametrize("d", [64, 80])
@@ -1553,3 +1587,67 @@ def test_smoke_mixer_lm_on_card_equals_cpu(cuda, arch):
         errs.append(float((lg[:, 0] - got[:, i]).abs().max()))
     assert max(errs) / scale < 1e-4, errs
     assert transformer.DecoderLM(cfg, train=True).embed.requires_grad
+
+
+def test_smoke_encdec_on_card_equals_cpu(cuda):
+    """seamless-m4t's smoke encoder-decoder on the card (flash attention:
+    encoder, decoder and cross attention) and the same weights on the
+    CPU, f32: teacher-forced logits within 1e-4 of their scale, and
+    prefill plus decode steps within 1e-4 of the card's teacher-forced
+    logits; one launch an attention."""
+    cfg = configs.smoke("seamless-m4t-large-v2").with_(act_dtype="float32")
+    cpu = encdec.EncDecLM(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(3))
+    gpu = encdec.EncDecLM(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(4))
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(5)
+    frames = rng.standard_normal((2, 33, cfg.frontend_dim), dtype=np.float32)
+    toks = rng.integers(0, cfg.vocab, (2, 24))
+    fg, tg = (torch.as_tensor(a, device=cuda) for a in (frames, toks))
+    before = fak.launch_count()
+    got = encdec.forward(gpu, fg, tg)
+    assert fak.launch_count() == before + cfg.encoder_layers + \
+        2 * cfg.n_layers
+    want = encdec.forward(cpu, torch.as_tensor(frames), torch.as_tensor(toks))
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) / scale < 1e-4
+    P = 16
+    lg, cache = encdec.prefill(gpu, fg, tg[:, :P], 24)
+    errs = [float((lg[:, 0] - got[:, P - 1]).abs().max())]
+    for i in range(P, 23):
+        before = fak.launch_count("decode")
+        lg, cache = encdec.decode_step(gpu, cache, tg[:, i:i + 1])
+        assert fak.launch_count("decode") == before + 2 * cfg.n_layers
+        errs.append(float((lg[:, 0] - got[:, i]).abs().max()))
+    assert max(errs) / scale < 1e-4, errs
+
+
+def test_smoke_frontend_on_card_equals_cpu(cuda):
+    """internvl2's smoke model with a patch-embedding prefix on the card
+    and the same weights on the CPU, f32: teacher-forced logits within
+    1e-4 of their scale, prefill plus decode within 1e-4 of the card's
+    teacher-forced logits."""
+    cfg = configs.smoke("internvl2-26b").with_(act_dtype="float32")
+    cpu = transformer.DecoderLM(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(3))
+    gpu = transformer.DecoderLM(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(4))
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(6)
+    pre = rng.standard_normal((2, cfg.frontend_seq, cfg.frontend_dim),
+                              dtype=np.float32)
+    toks = rng.integers(0, cfg.vocab, (2, 24))
+    pg, tg = (torch.as_tensor(a, device=cuda) for a in (pre, toks))
+    got = transformer.forward(gpu, tg, pg)
+    want = transformer.forward(cpu, torch.as_tensor(toks),
+                               torch.as_tensor(pre))
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) / scale < 1e-4
+    P, n = 16, cfg.frontend_seq
+    lg, cache = transformer.prefill(gpu, tg[:, :P], n + 24, prefix_embed=pg)
+    errs = [float((lg[:, 0] - got[:, n + P - 1]).abs().max())]
+    for i in range(P, 23):
+        lg, cache = transformer.decode_step(gpu, cache, tg[:, i:i + 1])
+        errs.append(float((lg[:, 0] - got[:, n + i]).abs().max()))
+    assert max(errs) / scale < 1e-4, errs

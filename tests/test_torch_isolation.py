@@ -76,3 +76,23 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
     assert len(make_index("spac-h", pts, device="cpu")) == 4
+
+
+def test_model_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """The LM entry points, the encoder-decoder's included, build on the
+    card by default and refuse a host without one."""
+    from repro_torch import configs
+    from repro_torch.models import encdec, transformer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seamless = configs.smoke("seamless-m4t-large-v2")
+    internvl = configs.smoke("internvl2-26b")
+    for call in (lambda: encdec.EncDecLM(seamless),
+                 lambda: encdec.init_cache(seamless, 1, 8, 8),
+                 lambda: transformer.DecoderLM(internvl)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert encdec.EncDecLM(seamless, device="cpu").device.type == "cpu"
+    assert any(p.name == "encdec.py" for p in SOURCES)
+    assert {"repro_torch.models.encdec", "repro_torch.configs.psi"} <= \
+        set(MODULES)

@@ -9,7 +9,11 @@ one pattern) and rwkv6 (RWKV6 layers), with the weights carried by
 ``load_reference_params``. For the mixer archs, prefill plus
 step-by-step decode against the reference's teacher-forced forward, under
 ``tests/test_models.py``'s protocol (f32, MoE capacity 4.0 so no token
-drops, B=2, S=40, within 1e-4 of the logits' scale)."""
+drops, B=2, S=40, within 1e-4 of the logits' scale). internvl2's vision
+frontend stub: ``forward``, ``loss_fn`` and prefill plus decode with
+``prefix_embed`` against the reference's, each within 1e-4 of the
+reference's largest value; the paper's workload grid (``configs.psi``)
+equal to the reference's."""
 
 from __future__ import annotations
 
@@ -22,11 +26,14 @@ import pytest
 import torch
 
 import repro.configs as jconfigs
+import repro.configs.psi as jpsi
+from repro.models import encdec as jE
 from repro.models import layers as jlayers
 from repro.models import transformer as jT
 from repro_torch import configs
+from repro_torch.configs import psi
 from repro_torch.kernels.flash_attn import kernel as fk
-from repro_torch.models import layers, transformer
+from repro_torch.models import encdec, layers, transformer
 
 torch.set_num_threads(1)
 
@@ -75,6 +82,22 @@ def test_configs_are_the_reference_data():
         assert configs.cells(arch) == jconfigs.cells(arch)
     assert {k: repr(v) for k, v in configs.SHAPES.items()} == \
         {k: repr(v) for k, v in jconfigs.SHAPES.items()}
+
+
+def test_psi_workloads_are_the_reference_data():
+    """``configs.psi`` is the reference's grid, field by field."""
+    assert [f.name for f in dataclasses.fields(psi.PsiWorkload)] == \
+        [f.name for f in dataclasses.fields(jpsi.PsiWorkload)]
+    assert dataclasses.asdict(psi.PsiWorkload("w", "uniform", 1)) == \
+        dataclasses.asdict(jpsi.PsiWorkload("w", "uniform", 1))
+    for name in ("FIG3", "FIG9", "FIG10", "SERVICE"):
+        got, want = getattr(psi, name), getattr(jpsi, name)
+        got, want = (got, want) if isinstance(got, tuple) else \
+            ((got,), (want,))
+        assert len(got) == len(want) > 0
+        for a, b in zip(got, want):
+            assert type(a).__name__ == type(b).__name__
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), name
 
 
 def test_rms_norm_and_rotary():
@@ -206,13 +229,32 @@ def test_state_dict_names_follow_the_reference_tree():
                                   "qwen3-moe-235b-a22b",
                                   "seamless-m4t-large-v2", "internvl2-26b"])
 def test_unported_mixers_raise(arch):
-    """The encoder-decoder and frontend archs still raise; the mixer
-    archs (ported) build, and their smoke forward matches the
-    reference's."""
-    if arch not in MIXER_ARCHS:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 5"):
-            transformer.DecoderLM(configs.smoke(arch), device="cpu")
+    """Every arch once unported builds, and its smoke forward matches
+    the reference's: the mixer archs, the encoder-decoder (through
+    ``models.encdec``, on frame embeddings) and the vision frontend
+    (``prefix_embed``)."""
+    if arch == "seamless-m4t-large-v2":
+        cfg, jcfg = _cfg(arch)
+        params = _np(jE.init_params(jax.random.PRNGKey(1), jcfg))
+        model = encdec.load_reference_params(
+            encdec.EncDecLM(cfg, device="cpu"), params)
+        rng = np.random.default_rng(8)
+        frames = rng.standard_normal((2, 16, cfg.frontend_dim),
+                                     dtype=np.float32)
+        toks = rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32)
+        got = encdec.forward(model, _t(frames), torch.from_numpy(toks))
+        want = jE.forward(params, jnp.asarray(frames), jnp.asarray(toks),
+                          jcfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        return
+    if arch == "internvl2-26b":
+        cfg, jcfg, params, model = _frontend_models(1)
+        toks, pre = _frontend_inputs(cfg, 8, 24)
+        got = transformer.forward(model, torch.from_numpy(toks), _t(pre))
+        want = jT.forward(params, jnp.asarray(toks), jcfg,
+                          prefix_embed=jnp.asarray(pre))
+        assert got.shape == (2, cfg.frontend_seq + 24, cfg.vocab)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         return
     cfg, jcfg, params, model = _models(arch, seed=1)
     toks = np.random.default_rng(8).integers(0, cfg.vocab, (2, 24)
@@ -278,3 +320,76 @@ def test_training_mixers_route_through_the_recurrence_functions():
         for leaf in leaves:
             hit = [g for name, g in grads.items() if name.endswith(leaf)]
             assert hit and all(float(g.abs().max()) > 0 for g in hit), leaf
+
+
+FRONTEND = "internvl2-26b"
+
+
+def _frontend_models(seed):
+    """internvl2's smoke config with the reference's weights, the
+    adapter's bias made nonzero (both packages initialise it to 0)."""
+    cfg, jcfg, params, _ = _models(FRONTEND, seed)
+    params["adapter"]["b"] = np.random.default_rng(seed).standard_normal(
+        params["adapter"]["b"].shape, dtype=np.float32) * 0.1
+    model = transformer.load_reference_params(
+        transformer.DecoderLM(cfg, device="cpu"), params)
+    return cfg, jcfg, params, model
+
+
+def _frontend_inputs(cfg, seed, S, B=2):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    pre = rng.standard_normal((B, cfg.frontend_seq, cfg.frontend_dim),
+                              dtype=np.float32)
+    return toks, pre
+
+
+def _rel(got, want) -> float:
+    want = np.asarray(want)
+    return float(np.max(np.abs(np.asarray(got) - want))) / float(
+        np.max(np.abs(want)))
+
+
+def test_frontend_loss_matches_reference():
+    """The loss covers the tokens past the prefix (labels -1 ignored)."""
+    cfg, jcfg, params, model = _frontend_models(2)
+    toks, pre = _frontend_inputs(cfg, 9, 20)
+    labels = np.roll(toks, -1, axis=1)
+    labels[1, -4:] = -1
+    with torch.no_grad():
+        got = transformer.loss_fn(model, torch.from_numpy(toks),
+                                  torch.from_numpy(labels), _t(pre))
+    want = float(jT.loss_fn(params, jnp.asarray(toks), jnp.asarray(labels),
+                            jcfg, prefix_embed=jnp.asarray(pre)))
+    assert abs(float(got) - want) <= 1e-4 * abs(want)
+
+
+def test_frontend_prefill_and_decode_match_reference():
+    """Prefill with ``prefix_embed`` (the prefix takes cache slots) and
+    decode steps against the reference's on the same tokens."""
+    cfg, jcfg, params, model = _frontend_models(3)
+    toks, pre = _frontend_inputs(cfg, 10, 16)
+    P, max_len = 10, cfg.frontend_seq + 16
+    lg, cache = transformer.prefill(model, torch.from_numpy(toks[:, :P]),
+                                    max_len, prefix_embed=_t(pre))
+    jlg, jcache = jT.prefill(params, jnp.asarray(toks[:, :P]), jcfg,
+                             max_len, prefix_embed=jnp.asarray(pre))
+    assert cache["len"] == int(jcache["len"]) == cfg.frontend_seq + P
+    errs = [_rel(lg.numpy(), jlg)]
+    for i in range(P, toks.shape[1]):
+        tok = toks[:, i:i + 1]
+        lg, cache = transformer.decode_step(model, cache,
+                                            torch.from_numpy(tok))
+        jlg, jcache = jT.decode_step(params, jcache, jnp.asarray(tok), jcfg)
+        errs.append(_rel(lg.numpy(), jlg))
+    assert max(errs) < 1e-4, errs
+    for name, c in cache["layers"].items():
+        for kv in ("k", "v"):
+            assert _rel(c[kv].numpy(), jcache["layers"][name][kv]) < 1e-4
+
+
+def test_prefix_embed_needs_a_frontend():
+    cfg, _, _, model = _models("qwen1.5-0.5b")
+    with pytest.raises(ValueError, match="prefix_embed needs a frontend"):
+        transformer.forward(model, torch.zeros((1, 4), dtype=torch.long),
+                            torch.zeros((1, 2, 32)))
