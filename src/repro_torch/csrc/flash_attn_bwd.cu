@@ -1,7 +1,10 @@
 // The backward of flash attention (FlashAttention-2's, deterministic) for
-// the training form of the call: q, k, v of one sequence (Sq == Skv, query
-// i and kv slot i both at position i), causal or not, with a sliding
-// window, grouped-query heads, f32 or bf16 in and out, f32 arithmetic.
+// the training forms of the call: self attention, q, k, v of one sequence
+// (Sq == Skv, query i and kv slot i both at position i), causal or not,
+// with a sliding window; and cross attention, Sq queries over the Skv slots
+// of another sequence (any Sq and Skv, non-causal, no window: every query
+// sees every slot). Grouped-query heads, f32 or bf16 in and out, f32
+// arithmetic.
 // Three kernels, each behind its own C entry
 // (src/repro_torch/kernels/flash_attn/kernel.py:attention_bwd):
 //
@@ -29,10 +32,12 @@
 // log-sum-exp (lse) this backward reads. Its plain version is
 // src/repro_torch/kernels/flash_attn/ref.py:attention_bwd_plain.
 //
-// Masks: a kv slot t is visible to query i when (not causal or t <= i)
-// and (no window or t > i - window), as in the forward (ref.py:_visible).
-// Blocks that no pair of theirs can see are skipped by the loop bounds;
-// inside a block each pair is tested.
+// Lengths: q, o, dO, dq, lse and D have Sq rows, k, v, dk and dv Skv.
+// Masks: a kv slot t < Skv is visible to query i < Sq when (not causal or
+// t <= i) and (no window or t > i - window), as in the forward
+// (ref.py:_visible; causal and window come only with Sq == Skv). Blocks
+// that no pair of theirs can see are skipped by the loop bounds; inside a
+// block each pair is tested.
 //
 // What bounds it on an H100: the products. The function needs 10 d
 // operations a visible (query, slot) pair (S, dP, dV, dK, dQ at 2 d
@@ -119,13 +124,13 @@ struct Args {
   const void* v;
   const void* o;
   const void* dout;
-  const float* lse;  // (B, Hq, S) contiguous
-  float* delta;      // (B, Hq, S) contiguous
+  const float* lse;  // (B, Hq, Sq) contiguous
+  float* delta;      // (B, Hq, Sq) contiguous
   void* dq;
   void* dk;
   void* dv;
-  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
-  int hq, hkv, s, d, causal, window;
+  Strides q_st, k_st, v_st, o_st, do_st, dq_st, dk_st, dv_st;
+  int hq, hkv, sq, skv, d, causal, window;
   float scale;
   unsigned perm_q, perm_k, perm_v, perm_g;  // tc's tensor maps' dimensions
 };
@@ -183,15 +188,15 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int lane = threadIdx.x & 31;
-  if (row >= a.s) return;
-  const T* O = static_cast<const T*>(a.o) + at(a.so, b, h) + row * a.so.s;
+  if (row >= a.sq) return;
+  const T* O = static_cast<const T*>(a.o) + at(a.o_st, b, h) + row * a.o_st.s;
   const T* dO =
-      static_cast<const T*>(a.dout) + at(a.sdo, b, h) + row * a.sdo.s;
+      static_cast<const T*>(a.dout) + at(a.do_st, b, h) + row * a.do_st.s;
   float x = 0.f;
   for (int c = lane; c < a.d; c += 32) x = fmaf(load(dO, c), load(O, c), x);
   x = warp_sum(x);
   if (lane == 0) {
-    a.delta[(static_cast<long long>(b) * a.hq + h) * a.s + row] = x;
+    a.delta[(static_cast<long long>(b) * a.hq + h) * a.sq + row] = x;
   }
 }
 
@@ -217,15 +222,15 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int r0 = warp * kRows;  // this warp's rows of the kv block
 
-  stage(ks, static_cast<const T*>(a.k) + at(a.sk, b, hk), a.sk.s, k0, a.s, d,
-        1.f);
-  stage(vs, static_cast<const T*>(a.v) + at(a.sv, b, hk), a.sv.s, k0, a.s, d,
-        1.f);
+  stage(ks, static_cast<const T*>(a.k) + at(a.k_st, b, hk), a.k_st.s, k0,
+        a.skv, d, 1.f);
+  stage(vs, static_cast<const T*>(a.v) + at(a.v_st, b, hk), a.v_st.s, k0,
+        a.skv, d, 1.f);
 
   // the query rows that see some slot of [k0, k1)
-  const int k1 = min(k0 + kBlock, a.s);
+  const int k1 = min(k0 + kBlock, a.skv);
   const int q_lo = a.causal ? k0 : 0;
-  const int q_hi = a.window > 0 ? min(a.s, k1 - 1 + a.window) : a.s;
+  const int q_hi = a.window > 0 ? min(a.sq, k1 - 1 + a.window) : a.sq;
 
   float dk[kRows][kChunks], dv[kRows][kChunks];
 #pragma unroll
@@ -236,17 +241,17 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int hg = 0; hg < G; ++hg) {
     const int h = hk * G + hg;
-    const T* Q = static_cast<const T*>(a.q) + at(a.sq, b, h);
-    const T* dO = static_cast<const T*>(a.dout) + at(a.sdo, b, h);
-    const long long row_base = (static_cast<long long>(b) * a.hq + h) * a.s;
+    const T* Q = static_cast<const T*>(a.q) + at(a.q_st, b, h);
+    const T* dO = static_cast<const T*>(a.dout) + at(a.do_st, b, h);
+    const long long row_base = (static_cast<long long>(b) * a.hq + h) * a.sq;
     for (int q0 = (q_lo / kBlock) * kBlock; q0 < q_hi; q0 += kBlock) {
       __syncthreads();  // the previous query block is consumed
-      stage(qs, Q, a.sq.s, q0, a.s, d, a.scale);
-      stage(dos, dO, a.sdo.s, q0, a.s, d, 1.f);
+      stage(qs, Q, a.q_st.s, q0, a.sq, d, a.scale);
+      stage(dos, dO, a.do_st.s, q0, a.sq, d, 1.f);
       if (threadIdx.x < kBlock) {
         const int i = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = i < a.s ? a.lse[row_base + i] : 0.f;
-        dl_s[threadIdx.x] = i < a.s ? a.delta[row_base + i] : 0.f;
+        lse_s[threadIdx.x] = i < a.sq ? a.lse[row_base + i] : 0.f;
+        dl_s[threadIdx.x] = i < a.sq ? a.delta[row_base + i] : 0.f;
       }
       __syncthreads();
 
@@ -272,7 +277,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int t = k0 + r0 + r;
-        const bool ok = i < a.s && t < a.s && visible(t, i, a.causal,
+        const bool ok = i < a.sq && t < a.skv && visible(t, i, a.causal,
                                                       a.window);
         p[r] = ok ? expf(s[r] - lse_i) : 0.f;
         ds[r] = p[r] * (dp[r] - d_i);
@@ -306,18 +311,18 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  T* dK = static_cast<T*>(a.dk) + at(a.sdk, b, hk);
-  T* dV = static_cast<T*>(a.dv) + at(a.sdv, b, hk);
+  T* dK = static_cast<T*>(a.dk) + at(a.dk_st, b, hk);
+  T* dV = static_cast<T*>(a.dv) + at(a.dv_st, b, hk);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int t = k0 + r0 + r;
-    if (t >= a.s) continue;
+    if (t >= a.skv) continue;
 #pragma unroll
     for (int ch = 0; ch < kChunks; ++ch) {
       const int c = lane + 32 * ch;
       if (c < d) {
-        store(dK, t * a.sdk.s + c, dk[r][ch]);
-        store(dV, t * a.sdv.s + c, dv[r][ch]);
+        store(dK, t * a.dk_st.s + c, dk[r][ch]);
+        store(dV, t * a.dv_st.s + c, dv[r][ch]);
       }
     }
   }
@@ -342,22 +347,22 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int r0 = warp * kRows;
 
-  stage(qs, static_cast<const T*>(a.q) + at(a.sq, b, h), a.sq.s, q0, a.s, d,
-        a.scale);
-  stage(dos, static_cast<const T*>(a.dout) + at(a.sdo, b, h), a.sdo.s, q0,
-        a.s, d, 1.f);
-  const long long row_base = (static_cast<long long>(b) * a.hq + h) * a.s;
+  stage(qs, static_cast<const T*>(a.q) + at(a.q_st, b, h), a.q_st.s, q0,
+        a.sq, d, a.scale);
+  stage(dos, static_cast<const T*>(a.dout) + at(a.do_st, b, h), a.do_st.s, q0,
+        a.sq, d, 1.f);
+  const long long row_base = (static_cast<long long>(b) * a.hq + h) * a.sq;
   float lse_r[kRows], d_r[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = q0 + r0 + r;
-    lse_r[r] = i < a.s ? a.lse[row_base + i] : 0.f;
-    d_r[r] = i < a.s ? a.delta[row_base + i] : 0.f;
+    lse_r[r] = i < a.sq ? a.lse[row_base + i] : 0.f;
+    d_r[r] = i < a.sq ? a.delta[row_base + i] : 0.f;
   }
 
   // the kv slots that some row of [q0, q1) sees
-  const int q1 = min(q0 + kBlock, a.s);
-  const int hi = a.causal ? q1 : a.s;
+  const int q1 = min(q0 + kBlock, a.sq);
+  const int hi = a.causal ? q1 : a.skv;
   const int lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
 
   float dq[kRows][kChunks];
@@ -366,13 +371,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) dq[r][i] = 0.f;
   }
-  const T* K = static_cast<const T*>(a.k) + at(a.sk, b, hk);
-  const T* V = static_cast<const T*>(a.v) + at(a.sv, b, hk);
+  const T* K = static_cast<const T*>(a.k) + at(a.k_st, b, hk);
+  const T* V = static_cast<const T*>(a.v) + at(a.v_st, b, hk);
 
   for (int t0 = (lo / kBlock) * kBlock; t0 < hi; t0 += kBlock) {
     __syncthreads();  // the previous kv block is consumed (q is staged)
-    stage(ks, K, a.sk.s, t0, a.s, d, 1.f);
-    stage(vs, V, a.sv.s, t0, a.s, d, 1.f);
+    stage(ks, K, a.k_st.s, t0, a.skv, d, 1.f);
+    stage(vs, V, a.v_st.s, t0, a.skv, d, 1.f);
     __syncthreads();
 
     // lane = kv slot t0 + lane against this warp's kRows query rows
@@ -395,7 +400,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int i = q0 + r0 + r;
-      const bool ok = i < a.s && t < a.s && visible(t, i, a.causal,
+      const bool ok = i < a.sq && t < a.skv && visible(t, i, a.causal,
                                                     a.window);
       const float p = ok ? expf(s[r] - lse_r[r]) : 0.f;
       ds[r] = p * (dp[r] - d_r[r]);
@@ -422,15 +427,15 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  T* dQ = static_cast<T*>(a.dq) + at(a.sdq, b, h);
+  T* dQ = static_cast<T*>(a.dq) + at(a.dq_st, b, h);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = q0 + r0 + r;
-    if (i >= a.s) continue;
+    if (i >= a.sq) continue;
 #pragma unroll
     for (int ch = 0; ch < kChunks; ++ch) {
       const int c = lane + 32 * ch;
-      if (c < d) store(dQ, i * a.sdq.s + c, dq[r][ch] * a.scale);
+      if (c < d) store(dQ, i * a.dq_st.s + c, dq[r][ch] * a.scale);
     }
   }
 }
@@ -730,13 +735,13 @@ __device__ __forceinline__ void value_products(float (&acc)[N],
 // which pairs of kv rows [t0, t0 + 64) and query rows [i0, i0 + 64) are
 // visible: 0 none, 1 some (test each pair), 2 all
 __device__ __forceinline__ int tile_kind(int t0, int i0, const Args& a) {
-  const int t1 = min(t0 + kTileRows, a.s) - 1;
-  const int i1 = min(i0 + kTileRows, a.s) - 1;
+  const int t1 = min(t0 + kTileRows, a.skv) - 1;
+  const int i1 = min(i0 + kTileRows, a.sq) - 1;
   if (t1 < t0 || i1 < i0) return 0;
   const int lo = i0 - t1;  // i - t over the tile's valid pairs
   const int hi = i1 - t0;
   if ((a.causal && hi < 0) || (a.window > 0 && lo >= a.window)) return 0;
-  const bool all = t0 + kTileRows <= a.s && i0 + kTileRows <= a.s &&
+  const bool all = t0 + kTileRows <= a.skv && i0 + kTileRows <= a.sq &&
                    (!a.causal || lo >= 0) && (a.window <= 0 ||
                                               hi < a.window);
   return all ? 2 : 1;
@@ -744,7 +749,7 @@ __device__ __forceinline__ int tile_kind(int t0, int i0, const Args& a) {
 
 // kv slot t visible to query i, both inside the sequence (no branch)
 __device__ __forceinline__ bool seen(int t, int i, const Args& a) {
-  return (t < a.s) & (i < a.s) & ((a.causal == 0) | (t <= i)) &
+  return (t < a.skv) & (i < a.sq) & ((a.causal == 0) | (t <= i)) &
          ((a.window <= 0) | (t > i - a.window));
 }
 
@@ -862,12 +867,11 @@ __device__ __forceinline__ void consumer_regs() {
 }
 
 // a 64 x padded(D) accumulator (rows `row0` + its 64, columns < D) times
-// `mul` into bf16 rows of `out` (row stride `stride`)
+// `mul` into the bf16 rows below `rows` of `out` (row stride `stride`)
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* out, long long stride,
                                            const float (&acc)[padded(D) / 2],
-                                           int row0, float mul,
-                                           const Args& a) {
+                                           int row0, float mul, int rows) {
   constexpr int DP = padded(D);
   const int tid = threadIdx.x & 127;
   const int r = row0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
@@ -878,7 +882,7 @@ __device__ __forceinline__ void store_rows(bf16* out, long long stride,
     if (c >= D) continue;
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      if (r + 8 * u < a.s) {
+      if (r + 8 * u < rows) {
         *reinterpret_cast<__nv_bfloat162*>(out + (r + 8 * u) * stride + c) =
             __floats2bfloat162_rn(acc[4 * j + 2 * u] * mul,
                                   acc[4 * j + 2 * u + 1] * mul);
@@ -902,9 +906,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int G = a.hq / a.hkv;
-  const int k1 = min(k0 + kBlockRows, a.s);
+  const int k1 = min(k0 + kBlockRows, a.skv);
   const int q_lo = a.causal ? k0 : 0;
-  const int q_hi = a.window > 0 ? min(a.s, k1 - 1 + a.window) : a.s;
+  const int q_hi = a.window > 0 ? min(a.sq, k1 - 1 + a.window) : a.sq;
   const int t_begin = (q_lo / kTileRows) * kTileRows;
   const int n_tiles = q_hi > t_begin
                           ? (q_hi - t_begin + kTileRows - 1) / kTileRows
@@ -927,12 +931,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(empty_bar(m, st), ((it / kStages) & 1) ^ 1);
       const int h = hk * G + it / n_tiles;
       const int q0 = t_begin + (it % n_tiles) * kTileRows;
-      const long long rb = (static_cast<long long>(b) * a.hq + h) * a.s;
+      const long long rb = (static_cast<long long>(b) * a.hq + h) * a.sq;
       for (int r = lane; r < kTileRows; r += 32) {
         const int i = q0 + r;
         m.lse[st * kTileRows + r] =
-            i < a.s ? a.lse[rb + i] * kLog2e : __int_as_float(0x7f800000);
-        m.dl[st * kTileRows + r] = i < a.s ? a.delta[rb + i] : 0.f;
+            i < a.sq ? a.lse[rb + i] * kLog2e : __int_as_float(0x7f800000);
+        m.dl[st * kTileRows + r] = i < a.sq ? a.delta[rb + i] : 0.f;
       }
       const uint32_t full = full_bar(m, st);
       if (lane == 0) {
@@ -1068,10 +1072,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       mbar_arrive(empty_bar(m, st));
     }
-    store_rows<D>(static_cast<bf16*>(a.dk) + at(a.sdk, b, hk), a.sdk.s, dk,
-                  kw0, a.scale, a);
-    store_rows<D>(static_cast<bf16*>(a.dv) + at(a.sdv, b, hk), a.sdv.s, dv,
-                  kw0, 1.f, a);
+    store_rows<D>(static_cast<bf16*>(a.dk) + at(a.dk_st, b, hk), a.dk_st.s,
+                  dk, kw0, a.scale, a.skv);
+    store_rows<D>(static_cast<bf16*>(a.dv) + at(a.dv_st, b, hk), a.dv_st.s,
+                  dv, kw0, 1.f, a.skv);
   }
 }
 
@@ -1089,8 +1093,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (a.hq / a.hkv);
-  const int q1 = min(q0 + kBlockRows, a.s);
-  const int hi = a.causal ? q1 : a.s;
+  const int q1 = min(q0 + kBlockRows, a.sq);
+  const int hi = a.causal ? q1 : a.skv;
   const int lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int t_begin = (lo / kTileRows) * kTileRows;
   const int n_tiles =
@@ -1126,13 +1130,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float sl2 = a.scale * kLog2e;
     const uint32_t qt = m.own + wg * T;
     const uint32_t gt = m.own2 + wg * T;
-    const long long rb = (static_cast<long long>(b) * a.hq + h) * a.s;
+    const long long rb = (static_cast<long long>(b) * a.hq + h) * a.sq;
     float lse2[2], dl[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int i = r0 + 8 * u;
-      lse2[u] = i < a.s ? a.lse[rb + i] * kLog2e : __int_as_float(0x7f800000);
-      dl[u] = i < a.s ? a.delta[rb + i] : 0.f;
+      lse2[u] = i < a.sq ? a.lse[rb + i] * kLog2e : __int_as_float(0x7f800000);
+      dl[u] = i < a.sq ? a.delta[rb + i] : 0.f;
     }
     float dq[DP / 2];
 #pragma unroll
@@ -1196,8 +1200,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       mbar_arrive(empty_bar(m, st));
     }
-    store_rows<D>(static_cast<bf16*>(a.dq) + at(a.sdq, b, h), a.sdq.s, dq,
-                  qw0, a.scale, a);
+    store_rows<D>(static_cast<bf16*>(a.dq) + at(a.dq_st, b, h), a.dq_st.s,
+                  dq, qw0, a.scale, a.sq);
   }
 }
 
@@ -1309,7 +1313,8 @@ int launch_kernel(size_t smem, dim3 grid, const Maps& maps, const Args& a,
 template <int D>
 int launch_as(int which, const Maps& maps, const Args& a, int batch,
               cudaStream_t s) {
-  const dim3 grid((a.s + kBlockRows - 1) / kBlockRows,
+  const int rows = which == 1 ? a.skv : a.sq;  // the CTAs' own rows
+  const dim3 grid((rows + kBlockRows - 1) / kBlockRows,
                   which == 1 ? a.hkv : a.hq, batch);
   constexpr size_t smem = smem_bytes<padded(D)>();
   if (which == 1) {
@@ -1321,15 +1326,15 @@ int launch_as(int which, const Maps& maps, const Args& a, int batch,
 
 int launch(int which, Args a, int batch, cudaStream_t s) {
   Maps maps;
-  int err = encode(&maps.q, a.q, a.sq, a.s, a.hq, batch, a.d, &a.perm_q);
+  int err = encode(&maps.q, a.q, a.q_st, a.sq, a.hq, batch, a.d, &a.perm_q);
   if (err == 0) {
-    err = encode(&maps.k, a.k, a.sk, a.s, a.hkv, batch, a.d, &a.perm_k);
+    err = encode(&maps.k, a.k, a.k_st, a.skv, a.hkv, batch, a.d, &a.perm_k);
   }
   if (err == 0) {
-    err = encode(&maps.v, a.v, a.sv, a.s, a.hkv, batch, a.d, &a.perm_v);
+    err = encode(&maps.v, a.v, a.v_st, a.skv, a.hkv, batch, a.d, &a.perm_v);
   }
   if (err == 0) {
-    err = encode(&maps.g, a.dout, a.sdo, a.s, a.hq, batch, a.d, &a.perm_g);
+    err = encode(&maps.g, a.dout, a.do_st, a.sq, a.hq, batch, a.d, &a.perm_g);
   }
   if (err != 0) return err;
   switch (a.d) {
@@ -1367,7 +1372,7 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const Args& a,
 
 template <typename T, int kChunks>
 int launch_blocks(int which, const Args& a, int batch, cudaStream_t s) {
-  const int nb = (a.s + kBlock - 1) / kBlock;
+  const int nb = ((which == 1 ? a.skv : a.sq) + kBlock - 1) / kBlock;
   if (which == 1) {
     return launch(flash_bwd_dkdv_kernel<T, kChunks>, dim3(nb, a.hkv, batch),
                   block_smem(a), a, s);
@@ -1379,7 +1384,7 @@ int launch_blocks(int which, const Args& a, int batch, cudaStream_t s) {
 template <typename T>
 int launch_typed(int which, const Args& a, int batch, cudaStream_t s) {
   if (which == 0) {
-    const dim3 grid((a.s + kWarps - 1) / kWarps, a.hq, batch);
+    const dim3 grid((a.sq + kWarps - 1) / kWarps, a.hq, batch);
     flash_bwd_delta_kernel<T><<<grid, kThreads, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
@@ -1392,11 +1397,16 @@ int launch_typed(int which, const Args& a, int batch, cudaStream_t s) {
 int launch_bwd(int which, const void* q, const void* k, const void* v,
                const void* o, const void* dout, const void* lse, void* delta,
                void* dq, void* dk, void* dv, const long long* strides,
-               int dtype, int batch, int hq, int hkv, int s, int d,
-               int causal, int window, float scale, int tc, void* stream) {
-  if (batch <= 0 || hq <= 0 || s <= 0) return 0;
-  if (d <= 0 || d > 128 || hkv <= 0 || hq % hkv != 0 || strides == nullptr ||
-      lse == nullptr || delta == nullptr) {
+               int dtype, int batch, int hq, int hkv, int sq, int skv,
+               int d, int causal, int window, float scale, int tc,
+               void* stream) {
+  if (batch <= 0 || hq <= 0 || sq <= 0) return 0;
+  if (d <= 0 || d > 128 || hkv <= 0 || hq % hkv != 0 || skv <= 0 ||
+      strides == nullptr || lse == nullptr || delta == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // at Sq != Skv only cross attention: non-causal, no window
+  if (sq != skv && (causal || window > 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{};
@@ -1410,7 +1420,8 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
-  Strides* st[] = {&a.sq, &a.sk, &a.sv, &a.so, &a.sdo, &a.sdq, &a.sdk, &a.sdv};
+  Strides* st[] = {&a.q_st,  &a.k_st,  &a.v_st,  &a.o_st,
+                   &a.do_st, &a.dq_st, &a.dk_st, &a.dv_st};
   for (int i = 0; i < 8; ++i) {
     st[i]->b = strides[3 * i];
     st[i]->h = strides[3 * i + 1];
@@ -1418,7 +1429,8 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
   }
   a.hq = hq;
   a.hkv = hkv;
-  a.s = s;
+  a.sq = sq;
+  a.skv = skv;
   a.d = d;
   a.causal = causal;
   a.window = window;
@@ -1435,12 +1447,13 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, dq: (B, Hq, S, d); k, v, dk, dv: (B, Hkv, S, d); o, dout: (B, Hq, S,
-// d); each with its own (batch, head, sequence) strides in elements, 24 of
-// them in `strides` in the order q, k, v, o, dout, dq, dk, dv, and a
-// contiguous last dimension. lse, delta: (B, Hq, S) f32 contiguous. dtype
-// 0 = f32, 1 = bf16, for all of q, k, v, o, dout, dq, dk, dv. window <= 0
-// means none. d <= 128, Hq % Hkv == 0. tc = 1 takes the tensor-core
+// q, o, dout, dq: (B, Hq, Sq, d); k, v, dk, dv: (B, Hkv, Skv, d); each
+// with its own (batch, head, sequence) strides in elements, 24 of them in
+// `strides` in the order q, k, v, o, dout, dq, dk, dv, and a contiguous
+// last dimension. lse, delta: (B, Hq, Sq) f32 contiguous. dtype 0 = f32,
+// 1 = bf16, for all of q, k, v, o, dout, dq, dk, dv. window <= 0 means
+// none. d <= 128, Hq % Hkv == 0; Sq != Skv only non-causal without a
+// window (cross attention: every query sees every slot). tc = 1 takes the tensor-core
 // variant of dkdv and dq (bf16, d a multiple of 16, the five inputs' base
 // pointers and (batch, head, sequence) strides 16-byte aligned, as
 // cp.async needs; the wrapper checks), tc = 0 the SIMT one (delta is the
@@ -1453,11 +1466,11 @@ extern "C" int flash_attn_bwd_delta_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, const long long* strides, int dtype, int batch, int hq,
-    int hkv, int s, int d, int causal, int window, float scale, int tc,
-    void* stream) {
+    int hkv, int sq, int skv, int d, int causal, int window, float scale,
+    int tc, void* stream) {
   return launch_bwd(0, q, k, v, o, dout, lse, delta, dq, dk, dv, strides,
-                    dtype, batch, hq, hkv, s, d, causal, window, scale, tc,
-                    stream);
+                    dtype, batch, hq, hkv, sq, skv, d, causal, window, scale,
+                    tc, stream);
 }
 
 // dk and dv
@@ -1465,11 +1478,11 @@ extern "C" int flash_attn_bwd_dkdv_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, const long long* strides, int dtype, int batch, int hq,
-    int hkv, int s, int d, int causal, int window, float scale, int tc,
-    void* stream) {
+    int hkv, int sq, int skv, int d, int causal, int window, float scale,
+    int tc, void* stream) {
   return launch_bwd(1, q, k, v, o, dout, lse, delta, dq, dk, dv, strides,
-                    dtype, batch, hq, hkv, s, d, causal, window, scale, tc,
-                    stream);
+                    dtype, batch, hq, hkv, sq, skv, d, causal, window, scale,
+                    tc, stream);
 }
 
 // dq
@@ -1477,9 +1490,9 @@ extern "C" int flash_attn_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, const long long* strides, int dtype, int batch, int hq,
-    int hkv, int s, int d, int causal, int window, float scale, int tc,
-    void* stream) {
+    int hkv, int sq, int skv, int d, int causal, int window, float scale,
+    int tc, void* stream) {
   return launch_bwd(2, q, k, v, o, dout, lse, delta, dq, dk, dv, strides,
-                    dtype, batch, hq, hkv, s, d, causal, window, scale, tc,
-                    stream);
+                    dtype, batch, hq, hkv, sq, skv, d, causal, window, scale,
+                    tc, stream);
 }

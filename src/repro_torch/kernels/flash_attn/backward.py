@@ -31,13 +31,15 @@ The reference has no ``custom_vjp``: XLA differentiates its jnp twin
 (``repro/models/layers.py:_chunk_attention``), and the tests hold these
 gradients against ``jax.vjp`` of it.
 
-:func:`flash_attention_train` is the training form of
-:func:`kernel.flash_attention` (``Sq == Skv``, no ``q_offset`` or
-``k_pos``, causal or not, a window, grouped-query heads, f32 or bf16, d
-a multiple of 16 up to 128) as a ``torch.autograd.Function``: its
-forward saves ``(q, k, v, out, lse)``, its backward is
-:func:`attention_bwd`. The models take it when grad mode is on and an
-input requires grad (``models/layers.py:_chunk_attention``).
+:func:`flash_attention_train` is the training forms of
+:func:`kernel.flash_attention` as a ``torch.autograd.Function``: self
+attention (``Sq == Skv``, causal or not, a window) and cross attention
+(``Sq != Skv``, non-causal, no window: the encoder-decoder's), the
+queries at ``q_offset`` 0 and no ``k_pos``, grouped-query heads, f32 or
+bf16, d a multiple of 16 up to 128. Its forward saves ``(q, k, v, out,
+lse)``, its backward is :func:`attention_bwd`. The models take it when
+grad mode is on and an input requires grad
+(``models/layers.py:_chunk_attention``).
 """
 
 from __future__ import annotations
@@ -75,15 +77,16 @@ def _fn(name: str):
         fn.restype = ctypes.c_int
         i = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 10
-                       + [ctypes.POINTER(ctypes.c_longlong)] + [i] * 8
+                       + [ctypes.POINTER(ctypes.c_longlong)] + [i] * 9
                        + [ctypes.c_float, i, ctypes.c_void_p])
         _FNS[name] = fn
     return fn
 
 
 def _grad_like(t):
-    """An uninitialised gradient for ``t`` (B, H, S, d), laid out as
-    ``(B, S, H, d)`` memory like the models' q, k and v views."""
+    """An uninitialised gradient for ``t`` (B, H, S, d) at ``t``'s own
+    length S (q's Sq, k's and v's Skv), laid out as ``(B, S, H, d)``
+    memory like the models' q, k and v views."""
     B, H, S, d = t.shape
     return torch.empty((B, S, H, d), dtype=t.dtype,
                        device=t.device).transpose(1, 2)
@@ -110,14 +113,15 @@ def variant_for(q, k, v, o, do) -> str:
 
 def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window=None,
                   variant: str | None = None):
-    """``(dq, dk, dv)`` of the training-form attention at ``do``, from the
-    forward's output ``o`` and row log-sum-exp ``lse`` (B, Hq, S) f32;
-    the contract of :func:`ref.attention_bwd_plain`. Each gradient has
-    its input's shape and dtype. ``variant`` names one for tests and
+    """``(dq, dk, dv)`` of a training-form attention at ``do``, from the
+    forward's output ``o`` and row log-sum-exp ``lse`` (B, Hq, Sq) f32;
+    the contract of :func:`ref.attention_bwd_plain` at ``q_offset`` 0
+    (Sq != Skv only non-causal without a window). Each gradient has its
+    input's shape and dtype. ``variant`` names one for tests and
     measurements (``simt`` takes all CUDA inputs, ``tc`` what
     :func:`variant_for` gives it); the models leave it to
     :func:`variant_for`."""
-    fak.check_train(q, k, v, window)
+    fak.check_train(q, k, v, causal, window)
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != q.shape[:3] or lse.dtype != torch.float32:
         raise ValueError(f"attention_bwd: o {tuple(o.shape)}, do "
@@ -139,9 +143,9 @@ def _backward(q, k, v, o, lse, do, causal, window, variant=None):
     dev = q.device
     if dev.type == "cpu":
         return attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                   window=window)
-    B, Hq, S, d = q.shape
-    Hkv = k.shape[1]
+                                   window=window, q_offset=0)
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
     q, k, v, o, do = (_strided(fak._inner(t.to(q.dtype)))
                       for t in (q, k, v, o, do))
     lse = lse.contiguous()
@@ -151,14 +155,15 @@ def _backward(q, k, v, o, lse, do, causal, window, variant=None):
     elif variant not in VARIANTS or variant not in ("simt", fits):
         raise ValueError(f"attention_bwd: the {variant!r} variant does not "
                          f"take q {tuple(q.shape)} {q.dtype}")
-    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
     dq, dk, dv = _grad_like(q), _grad_like(k), _grad_like(v)
     strides = (ctypes.c_longlong * 24)(*(
         st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), strides, fak._DTYPES[q.dtype], B,
-            Hq, Hkv, S, d, int(causal), 0 if window is None else int(window),
+            Hq, Hkv, Sq, Skv, d, int(causal),
+            0 if window is None else int(window),
             1.0 / (d ** 0.5), int(variant == "tc"),
             torch.cuda.current_stream(dev).cuda_stream]
     _STATS[variant] += 1
@@ -190,9 +195,10 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention_train(q, k, v, *, causal: bool = True, window=None):
-    """:func:`kernel.flash_attention` in its training form (``Sq ==
-    Skv``), differentiable through :func:`attention_bwd`. The inputs are
-    checked here, once a call; the forward and backward launch without
-    checking them again."""
-    fak.check_train(q, k, v, window)
+    """:func:`kernel.flash_attention` in a training form (self attention,
+    or cross attention at Sq != Skv: non-causal, no window; queries at
+    ``q_offset`` 0), differentiable through :func:`attention_bwd`. The
+    inputs are checked here, once a call; the forward and backward launch
+    without checking them again."""
+    fak.check_train(q, k, v, causal, window)
     return FlashAttention.apply(q, k, v, causal, window)

@@ -24,11 +24,13 @@ Each wrapper call adds one to :func:`launch_count` and one to
 ``launch_count(variant)``. A build or launch error raises; no other
 variant is tried.
 
-:func:`flash_attention_lse` is the training form's forward: ``Sq ==
-Skv``, no ``q_offset`` or ``k_pos``, ``d`` a multiple of 16 up to 128; it
-launches ``tc`` where :func:`variant_for` names it and ``simt`` otherwise
-(never ``decode``), and the kernel also writes each row's log-sum-exp for
-the backward kernels (``backward.py``).
+:func:`flash_attention_lse` is the training forms' forward: self
+attention (``Sq == Skv``) or cross attention (any ``Sq`` and ``Skv``,
+non-causal, no window), the queries at ``q_offset`` 0 and no ``k_pos``,
+``d`` a multiple of 16 up to 128; it launches ``tc`` where
+:func:`variant_for` names it and ``simt`` otherwise (never ``decode``),
+and the kernel also writes each row's log-sum-exp for the backward
+kernels (``backward.py``).
 
 Only the last dimension of q, k and v must be contiguous: a cache's
 valid prefix ``cache[:, :, :n]`` and the ``transpose(1, 2)`` of a
@@ -120,39 +122,45 @@ def _check(q, k, v, window, k_pos):
                          f"got {tuple(k_pos.shape)} {k_pos.dtype}")
 
 
-def check_train(q, k, v, window) -> None:
-    """Raise unless (q, k, v) is the training form of the call: ``Sq ==
-    Skv``, ``d`` a multiple of 16 up to 128, f32 or bf16, ``Hq % Hkv ==
-    0``, one device."""
+def check_train(q, k, v, causal, window) -> None:
+    """Raise unless (q, k, v) is a training form of the call: ``Sq ==
+    Skv`` (self attention), or ``Sq != Skv`` with ``causal`` false and no
+    ``window`` (cross attention); ``d`` a multiple of 16 up to 128, f32
+    or bf16, ``Hq % Hkv == 0``, one device."""
     _check(q, k, v, window, None)
     d = q.shape[3]
-    if q.shape[2] != k.shape[2] or d % 16 or d > 128:
-        raise ValueError(f"attention (training form): needs Sq == Skv and d "
+    cross = not causal and window is None
+    if (q.shape[2] != k.shape[2] and not cross) or d % 16 or d > 128:
+        raise ValueError(f"attention (training form): needs Sq == Skv (or "
+                         f"Sq != Skv non-causal without a window) and d "
                          f"a multiple of 16 up to 128, got q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = True, window=None):
-    """The training form's forward: ``(out, lse)`` with ``out`` as
-    :func:`flash_attention` gives it (``q_offset = None``, no ``k_pos``)
+    """The training forms' forward: ``(out, lse)`` with ``out`` as
+    :func:`flash_attention` gives it at ``q_offset = 0`` (no ``k_pos``)
     and ``lse`` (B, Hq, Sq) f32, each row's log-sum-exp of its scaled
     visible scores (:func:`ref.attention_lse_plain`). CUDA tensors take
     ``tc`` (bf16 where :func:`variant_for` names it) or ``simt``."""
-    check_train(q, k, v, window)
+    check_train(q, k, v, causal, window)
     return _forward_lse(q, k, v, causal, window)
 
 
 def _forward_lse(q, k, v, causal, window):
-    """:func:`flash_attention_lse` on inputs already checked."""
+    """:func:`flash_attention_lse` on inputs already checked. The queries
+    sit at ``q_offset = 0`` (``None`` would put them at the kv suffix,
+    a negative offset where Sq > Skv)."""
     dev = q.device
     if dev.type == "cpu":
-        return attention_lse_plain(q, k, v, causal=causal, window=window)
+        return attention_lse_plain(q, k, v, causal=causal, window=window,
+                                   q_offset=0)
     if dev.type != "cuda":
         raise ValueError(f"attention: unsupported device {dev}")
     variant = "tc" if variant_for(q, k, v) == "tc" else "simt"
     B, Hq, Sq, _ = q.shape
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
-    out = _run(variant, q, k, v, causal, window, None, None, lse)
+    out = _run(variant, q, k, v, causal, window, 0, None, lse)
     return out, lse
 
 

@@ -132,8 +132,9 @@ def _attention(q, k, v, causal, window, q_offset, k_pos):
 
 def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool, window=None,
                         q_offset=None):
-    """Gradients ``(dq, dk, dv)`` of :func:`attention_plain` (the kernel
-    takes ``q_offset = None`` and ``Sq == Skv``, the training form) at
+    """Gradients ``(dq, dk, dv)`` of :func:`attention_plain` (the kernels
+    take ``q_offset = 0``: self attention at ``Sq == Skv``, and cross
+    attention at any ``Sq`` and ``Skv``, non-causal without a window) at
     ``do``, from the forward's output ``o`` and ``lse``, each in
     its input's dtype, by the backward kernel's arithmetic in f32: q
     scaled before the products; ``p = exp(s - lse)`` on visible slots, 0
@@ -258,8 +259,9 @@ def _hi_lo(x, split: bool):
 
 def attention_bwd_tc_plain(q, k, v, o, lse, do, *, causal: bool,
                            window=None, split: bool = True):
-    """:func:`attention_bwd_plain`'s function (the training form, ``Sq ==
-    Skv``) by the ``tc`` backward kernels' arithmetic
+    """:func:`attention_bwd_plain`'s function (the training forms, queries
+    at ``q_offset`` 0: ``Sq == Skv``, or any ``Sq`` and ``Skv``
+    non-causal without a window) by the ``tc`` backward kernels' arithmetic
     (``csrc/flash_attn_bwd.cu``): bf16 operands multiplied exactly and
     summed in f32; ``D = rowsum(do * o)`` in f32; scores unscaled, ``p =
     2^(s * scale * log2 e - lse * log2 e)`` on visible pairs; ``dS = p
@@ -269,8 +271,8 @@ def attention_bwd_tc_plain(q, k, v, o, lse, do, *, causal: bool,
     over the q heads of each kv head's group, and over each head's query
     tiles of ``TC_BWD_TILE`` rows in order; dQ over kv tiles of
     ``TC_BWD_TILE`` slots in order."""
-    B, Hq, S, d = q.shape
-    Hkv = k.shape[1]
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     dev = q.device
     scale = 1.0 / (d ** 0.5)
@@ -278,38 +280,38 @@ def attention_bwd_tc_plain(q, k, v, o, lse, do, *, causal: bool,
     qb, kb, vb, dob = (_bf16(t) for t in (q, k, v, do))
     delta = (do.float() * o.float()).sum(dim=-1)
     lse2 = lse.float() * torch.tensor(LOG2E, dtype=torch.float32)
-    pos = torch.arange(S, device=dev)
+    qpos = torch.arange(Sq, device=dev)
+    kpos = torch.arange(Skv, device=dev)
     T = TC_BWD_TILE
 
     def grads(rows, cols, qg, dog, kg, vg, lg, dg):
         """p and dS of query rows ``rows`` against kv slots ``cols``."""
         s = torch.einsum("bhqd,bhkd->bhqk", qg[:, :, rows], kg[:, :, cols])
         p = torch.exp2(s * sl2 - lg[:, :, rows, None])
-        p = torch.where(_visible(pos[cols], pos[rows], causal, window), p,
+        p = torch.where(_visible(kpos[cols], qpos[rows], causal, window), p,
                         0.0)
         dp = torch.einsum("bhqd,bhkd->bhqk", dog[:, :, rows], vg[:, :, cols])
         return p, p * (dp - dg[:, :, rows, None])
 
-    dk = torch.zeros((B, Hkv, S, d), device=dev)
-    dv = torch.zeros((B, Hkv, S, d), device=dev)
-    every = slice(0, S)
+    dk = torch.zeros((B, Hkv, Skv, d), device=dev)
+    dv = torch.zeros((B, Hkv, Skv, d), device=dev)
     for g in range(G):  # head hk * G + g of each kv head hk
         heads = slice(g, Hq, G)
         qg, dog = qb[:, heads], dob[:, heads]
         lg, dg = lse2[:, heads], delta[:, heads]
-        for q0 in range(0, S, T):
+        for q0 in range(0, Sq, T):
             rows = slice(q0, q0 + T)
-            p, ds = grads(rows, every, qg, dog, kb, vb, lg, dg)
+            p, ds = grads(rows, slice(0, Skv), qg, dog, kb, vb, lg, dg)
             for part in _hi_lo(p, split):
                 dv += torch.einsum("bhqk,bhqd->bhkd", part, dog[:, :, rows])
             for part in _hi_lo(ds, split):
                 dk += torch.einsum("bhqk,bhqd->bhkd", part, qg[:, :, rows])
     kf = kb.repeat_interleave(G, dim=1)
     vf = vb.repeat_interleave(G, dim=1)
-    dq = torch.zeros((B, Hq, S, d), device=dev)
-    for t0 in range(0, S, T):
+    dq = torch.zeros((B, Hq, Sq, d), device=dev)
+    for t0 in range(0, Skv, T):
         cols = slice(t0, t0 + T)
-        _, ds = grads(every, cols, qb, dob, kf, vf, lse2, delta)
+        _, ds = grads(slice(0, Sq), cols, qb, dob, kf, vf, lse2, delta)
         for part in _hi_lo(ds, split):
             dq += torch.einsum("bhqk,bhkd->bhqd", part, kf[:, :, cols])
     return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),

@@ -9,6 +9,10 @@ A checkpoint written after step s holds s + 1 steps and a resumed run
 starts at step s + 1 (``repro_torch.ft.runtime``), so ``--resume``
 reproduces the uninterrupted run's later losses.
 
+Every arch trains: the decoder LMs, the frontend archs (internvl2-26b,
+with seeded patch embeddings before the tokens) and the encoder-decoder
+(seamless-m4t-large-v2, over ``seq // 2`` seeded frame embeddings).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \\
@@ -31,9 +35,10 @@ from repro_torch.train.step import TrainCfg, init_train_state, make_train_step
 
 def make_batches(cfg, seed: int, steps: int, batch: int, seq: int,
                  device=None):
-    """The reference's batches: tokens and labels, and the frontend
-    archs' ``prefix`` embeddings (no train step consumes those yet:
-    ``step.check_trainable``)."""
+    """The reference's batches: tokens and labels, and ``prefix``: the
+    encoder-decoder's frame embeddings (``seq // 2`` frames, the encoder's
+    input) or a frontend arch's ``frontend_seq`` patch embeddings (before
+    the tokens); the train step's loss consumes them."""
     for step in range(steps):
         toks, labels = lm_batch(seed, step, batch, seq, cfg.vocab,
                                 device=device)
@@ -68,7 +73,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = configs.smoke(args.arch) if args.smoke else configs.ARCHS[args.arch]
     cfg = cfg.with_(act_dtype="float32")   # the reference's choice
-    step_lib.check_trainable(cfg)
     dev = resolve_device(args.device)
     tcfg = TrainCfg(n_microbatch=args.microbatch,
                     compress_grads=args.compress_grads,

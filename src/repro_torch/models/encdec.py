@@ -16,6 +16,18 @@ unstacked: ``encoder.{l}.attn.wq`` is
 :func:`load_reference_params` and :func:`reference_params` (the
 decoder LM's, which map any model of the port) carry weights across.
 
+Training (``EncDecLM(..., train=True)``): :func:`loss_fn` is the
+reference's chunked cross-entropy over the decoder's labels, and every
+attention (the encoder's, the decoder's self and cross attention) trains
+through the attention backward kernels
+(``kernels/flash_attn/backward.py``; the cross attention at Sq != Skv).
+With grad mode on and ``cfg.remat`` other than ``"none"``, each encoder
+and decoder layer runs under ``torch.utils.checkpoint`` and is recomputed
+whole in the backward, as the reference's ``jax.checkpoint`` of each
+layer's body with no policy: unlike the decoder LM's ``"dots"``, which
+saves the projections, every remat mode here saves only each layer's
+input (``"dots"`` and ``"full"`` alike).
+
 Serving caches keep the reference's stacked layout: ``self_k`` and
 ``self_v`` (L, B, Hkv, max_len, hd) for the decoder's self-attention,
 ``mem_k`` and ``mem_v`` (L, B, Hq, mem_len, hd) for the cross
@@ -29,11 +41,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt_lib
 
 from ..device import resolve_device
 from . import layers
 from .config import ModelCfg
-from .transformer import (_Params, chunked_ce, default_generator,
+from .transformer import (_REMAT, _Params, chunked_ce, default_generator,
                           init_adapter, load_reference_params,  # noqa: F401
                           param_count, reference_params)
 
@@ -52,15 +65,20 @@ _DECODER = {"attn": layers.init_attention,
 class EncDecLM(nn.Module):
     """The encoder-decoder of ``cfg`` (``cfg.kind == "encdec"``) with
     weights drawn from ``generator`` (default: seed 0 on the model's
-    device), in ``cfg.act_dtype``, for serving (no gradients).
+    device), in ``cfg.act_dtype``, built for serving (no gradients) or,
+    with ``train=True``, with parameters that require grad.
     ``device=None`` means the card and raises on a host without one; the
     ``meta`` device sizes the model without memory."""
 
-    def __init__(self, cfg: ModelCfg, device=None, generator=None):
+    def __init__(self, cfg: ModelCfg, device=None, generator=None,
+                 train: bool = False):
         super().__init__()
         if cfg.kind != "encdec":
             raise ValueError(f"{cfg.name}: EncDecLM needs kind 'encdec', not "
                              f"{cfg.kind!r}")
+        if cfg.remat not in _REMAT:
+            raise ValueError(f"{cfg.name}: remat {cfg.remat!r} is not one of "
+                             f"{sorted(_REMAT)}")
         dev = resolve_device(device)
         dtype = getattr(torch, cfg.act_dtype)
         if generator is None:
@@ -79,7 +97,7 @@ class EncDecLM(nn.Module):
             for _ in range(cfg.n_layers))
         self.final_ln = nn.Parameter(torch.ones((D,), dtype=dtype,
                                                 device=dev))
-        self.requires_grad_(False)
+        self.requires_grad_(train)
 
     @property
     def device(self) -> torch.device:
@@ -94,6 +112,15 @@ def _positions(start: int, B: int, S: int, dev):
     return (start + torch.arange(S, device=dev)).expand(B, S)
 
 
+def _layer_call(cfg: ModelCfg, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (the whole layer
+    recomputed in the backward) when grad mode is on and ``cfg.remat``
+    is not ``"none"``: the reference's ``jax.checkpoint`` of the body."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    return ckpt_lib.checkpoint(fn, *args, use_reentrant=False)
+
+
 # ---------------------------------------------------------------- encoder
 
 def encode(model: EncDecLM, frames):
@@ -104,10 +131,14 @@ def encode(model: EncDecLM, frames):
     B, S = x.shape[:2]
     positions = _positions(0, B, S, x.device)
     for layer in model.encoder:
-        x, _ = layers.attention_block(x, layer["attn"], cfg, positions,
-                                      causal=False)
-        x = layers.swiglu_block(x, layer["ffn"], cfg)
+        x = _layer_call(cfg, _enc_body, layer, x, cfg, positions)
     return layers.rms_norm(x, model.enc_ln, cfg.norm_eps)
+
+
+def _enc_body(layer, x, cfg, positions):
+    x, _ = layers.attention_block(x, layer["attn"], cfg, positions,
+                                  causal=False)
+    return layers.swiglu_block(x, layer["ffn"], cfg)
 
 
 # ---------------------------------------------------------------- decoder
@@ -122,6 +153,10 @@ def _dec_body(layer, x, cfg, positions, memory=None, mem_kv=None,
     return x, kv, xkv
 
 
+def _dec_train_body(layer, x, cfg, positions, memory):
+    return _dec_body(layer, x, cfg, positions, memory=memory)[0]
+
+
 def decode_train(model: EncDecLM, tokens, memory):
     """Teacher-forced decoder pass. tokens: (B, S_dec) -> hidden (B,
     S_dec, D)."""
@@ -129,7 +164,8 @@ def decode_train(model: EncDecLM, tokens, memory):
     x = F.embedding(tokens, model.embed)
     positions = _positions(0, *tokens.shape, x.device)
     for layer in model.decoder:
-        x, _, _ = _dec_body(layer, x, cfg, positions, memory=memory)
+        x = _layer_call(cfg, _dec_train_body, layer, x, cfg, positions,
+                        memory)
     return layers.rms_norm(x, model.final_ln, cfg.norm_eps)
 
 

@@ -58,15 +58,19 @@ def _chunk_attention(q, k, v, *, causal: bool, window, q_offset: int,
     One kernel launch for CUDA tensors, the plain version for CPU ones.
 
     With grad mode on and an input that requires grad, the call must be
-    the training form (``Sq == Skv``, ``q_offset`` 0, no cache) and goes
-    through :func:`backward.flash_attention_train`, whose backward is the
-    backward kernels (their plain version on the CPU).
+    a training form and goes through :func:`backward.flash_attention_train`,
+    whose backward is the backward kernels (their plain version on the
+    CPU): no cache, ``q_offset`` 0, and either ``Sq == Skv`` (self
+    attention) or a non-causal call without a window (cross attention,
+    :func:`cross_attention_block`, at any ``Sq`` and ``Skv``).
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if kv_len is not None or k_positions is not None or \
-                q_offset != k.shape[2] - q.shape[2]:
-            raise ValueError("attention: gradients need the training form "
-                             "(no cache, queries over the whole sequence)")
+        cross = not causal and window is None
+        if kv_len is not None or k_positions is not None or q_offset != 0 \
+                or (q.shape[2] != k.shape[2] and not cross):
+            raise ValueError("attention: gradients need a training form (no "
+                             "cache, queries at offset 0 over the whole "
+                             "sequence, or cross attention)")
         return fab.flash_attention_train(q, k, v, causal=causal,
                                          window=window)
     if k_positions is None and kv_len is not None:

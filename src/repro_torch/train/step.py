@@ -16,9 +16,15 @@ exists (``_grad_specs``) so that GSPMD reduce-scatters it; on one card
 there is nothing to shard and the port has no counterpart (ROADMAP queue
 1, item 5.3, the sharding layer).
 
-State: the port's parameters are the model's (``DecoderLM(...,
-train=True)``) and the optimizer state is a dict of tensors keyed by
-parameter name (``m``, ``v``, ``step``, and ``ef`` with compression).
+Models, as the reference's ``_model_loss`` picks them: the decoder LMs
+(``DecoderLM(..., train=True)``; ``batch`` holds ``tokens`` and
+``labels``), the frontend archs (the same, with the ``adapter`` and
+``batch["prefix"]``'s patch or frame embeddings before the tokens) and
+the encoder-decoder (``EncDecLM(..., train=True)``, ``batch["prefix"]``
+the encoder's frame embeddings).
+
+State: the port's parameters are the model's and the optimizer state is
+a dict of tensors keyed by parameter name (``m``, ``v``, ``step``, and ``ef`` with compression).
 A step updates both in place and returns them. It changes nothing until
 every gradient exists, so a step that raises before its update (a
 preempted node, a failed launch) leaves the state it failed on, and the
@@ -35,7 +41,7 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
-from ..models import transformer
+from ..models import encdec, transformer
 from ..models.config import ModelCfg
 from ..optim.adamw import OptCfg, adamw_init, adamw_update
 
@@ -72,19 +78,24 @@ def compress_with_ef(grads: dict, ef: dict):
 
 # ------------------------------------------------------------ factory
 
-def check_trainable(cfg: ModelCfg) -> None:
-    """Raise ``NotImplementedError`` for the archs the port serves but
-    does not train yet: the encoder-decoder (its cross attention needs
-    the attention backward at Sq != Skv) and the frontend stubs."""
-    what = ("an encoder-decoder" if cfg.kind == "encdec" else
-            f"a {cfg.frontend} frontend" if cfg.frontend is not None else
-            None)
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training {what} is not ported yet (ROADMAP "
-            f"queue 1, item 5.2: training the encoder-decoder and the "
-            f"frontend stubs); the port serves it "
-            f"(models.encdec, models.transformer with prefix_embed)")
+def _model_loss(cfg: ModelCfg):
+    """``loss(model, batch)`` for ``cfg``'s kind: the encoder-decoder's
+    over ``batch["prefix"]`` frames, a frontend arch's with
+    ``batch["prefix"]`` before the tokens, a decoder LM's."""
+    if cfg.kind == "encdec":
+        def loss(model, batch):
+            return encdec.loss_fn(model, batch["prefix"], batch["tokens"],
+                                  batch["labels"])
+    elif cfg.frontend is not None:
+        def loss(model, batch):
+            return transformer.loss_fn(model, batch["tokens"],
+                                       batch["labels"],
+                                       prefix_embed=batch["prefix"])
+    else:
+        def loss(model, batch):
+            return transformer.loss_fn(model, batch["tokens"],
+                                       batch["labels"])
+    return loss
 
 
 def _check_model(model, cfg: ModelCfg) -> None:
@@ -94,16 +105,18 @@ def _check_model(model, cfg: ModelCfg) -> None:
 
 
 def init_train_state(seed, cfg: ModelCfg, tcfg: TrainCfg, device=None):
-    """``(model, opt_state)``: ``DecoderLM(cfg, train=True)`` with weights
-    drawn from ``seed`` (an int, or a ``torch.Generator`` on the device),
-    zero moments in ``tcfg.moment_dtype``, and ``ef`` zeros (f32) when
-    gradients are compressed. ``device=None`` means the card. Raises
-    for the archs :func:`check_trainable` refuses."""
-    check_trainable(cfg)
+    """``(model, opt_state)``: ``EncDecLM(cfg, train=True)`` for the
+    encoder-decoder, ``DecoderLM(cfg, train=True)`` (with its ``adapter``
+    for a frontend arch) otherwise, weights drawn from ``seed`` (an int,
+    or a ``torch.Generator`` on the device), zero moments in
+    ``tcfg.moment_dtype``, and ``ef`` zeros (f32) when gradients are
+    compressed. ``device=None`` means the card."""
     dev = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else \
         torch.Generator(device=dev).manual_seed(int(seed))
-    model = transformer.DecoderLM(cfg, device=dev, generator=gen, train=True)
+    build = encdec.EncDecLM if cfg.kind == "encdec" else \
+        transformer.DecoderLM
+    model = build(cfg, device=dev, generator=gen, train=True)
     params = dict(model.named_parameters())
     opt = adamw_init(params, getattr(torch, tcfg.moment_dtype))
     if tcfg.compress_grads:
@@ -112,26 +125,30 @@ def init_train_state(seed, cfg: ModelCfg, tcfg: TrainCfg, device=None):
     return model, opt
 
 
-def _value_and_grad(model, batch):
+def _value_and_grad(model, batch, loss_fn=None):
+    """``(loss, {name: gradient})`` of ``loss_fn(model, batch)`` (default:
+    the model's own kind's loss)."""
+    loss_fn = loss_fn or _model_loss(model.cfg)
     params = dict(model.named_parameters())
-    loss = transformer.loss_fn(model, batch["tokens"], batch["labels"])
+    loss = loss_fn(model, batch)
     grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), dict(zip(params, grads))
 
 
 def make_train_step(cfg: ModelCfg, tcfg: Optional[TrainCfg] = None):
     """Returns ``train_step(model, opt_state, batch) -> (model, opt_state,
-    metrics)``; ``batch`` holds ``tokens`` and ``labels`` (B, S) int.
-    Metrics ``loss``, ``lr`` and ``grad_norm`` are 0-d tensors. Raises
-    for the archs :func:`check_trainable` refuses."""
-    check_trainable(cfg)
+    metrics)``; ``batch`` holds ``tokens`` and ``labels`` (B, S) int and,
+    for the encoder-decoder and the frontend archs, ``prefix`` (B, P,
+    ``frontend_dim``); microbatching splits every entry along B. Metrics
+    ``loss``, ``lr`` and ``grad_norm`` are 0-d tensors."""
     tcfg = tcfg or TrainCfg()
+    loss_fn = _model_loss(cfg)
 
     def train_step(model, opt_state, batch):
         _check_model(model, cfg)
         n = tcfg.n_microbatch
         if n == 1:
-            loss, grads = _value_and_grad(model, batch)
+            loss, grads = _value_and_grad(model, batch, loss_fn)
         else:
             micro = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])
                      for k, v in batch.items()}
@@ -141,8 +158,8 @@ def make_train_step(cfg: ModelCfg, tcfg: Optional[TrainCfg] = None):
             grads = {k: torch.zeros(p.shape, dtype=acc_dt, device=dev)
                      for k, p in model.named_parameters()}
             for i in range(n):
-                li, gi = _value_and_grad(model,
-                                         {k: v[i] for k, v in micro.items()})
+                li, gi = _value_and_grad(
+                    model, {k: v[i] for k, v in micro.items()}, loss_fn)
                 grads = {k: g + gi[k].to(acc_dt) for k, g in grads.items()}
                 loss = loss + li
             loss = loss / n
@@ -165,11 +182,12 @@ def make_train_step(cfg: ModelCfg, tcfg: Optional[TrainCfg] = None):
 
 def make_eval_step(cfg: ModelCfg):
     """Returns ``eval_step(model, batch) -> loss`` (no gradients)."""
+    loss_fn = _model_loss(cfg)
 
     @torch.no_grad()
     def eval_step(model, batch):
         _check_model(model, cfg)
-        return transformer.loss_fn(model, batch["tokens"], batch["labels"])
+        return loss_fn(model, batch)
 
     return eval_step
 
@@ -179,8 +197,8 @@ def make_eval_step(cfg: ModelCfg):
 def state_tree(model, opt_state) -> dict:
     """The training state as the reference's ``{"params": ...,
     "opt": {"m", "v", "step"[, "ef"]}}`` tree: parameters and moments
-    with the group axis stacked (:func:`transformer.reference_tree`,
-    copies on the device)."""
+    with the group (or encoder and decoder layer) axis stacked
+    (:func:`transformer.reference_tree`, copies on the device)."""
     params = {k: p.detach() for k, p in model.named_parameters()}
     opt = {k: transformer.reference_tree(v) if isinstance(v, dict) else v
            for k, v in opt_state.items()}

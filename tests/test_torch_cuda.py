@@ -16,7 +16,10 @@ smoke phi3.5-moe, jamba and rwkv6 models on the card against the
 same weights on the CPU; flash attention at the encoder-decoder's cross
 shapes (Sq < Skv, queries at offset 0, non-causal) and internvl2's group
 of 6, and smoke seamless-m4t (encoder-decoder) and internvl2 (vision
-prefix) models on the card against the CPU.
+prefix) models on the card against the CPU; the attention backward at
+cross attention's form (Sq != Skv, non-causal, queries at offset 0) with
+its forward's lse, and a smoke seamless-m4t and internvl2 training step
+on the card against the CPU.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false (the decision is made in a
@@ -999,6 +1002,124 @@ def test_flash_attn_bwd_wrapper_raises(cuda):
     o, lse = fak.flash_attention_lse(q, k, v)
     with pytest.raises(ValueError, match="variant"):
         fab.attention_bwd(q, k, v, o, lse, q, variant="tc")
+
+
+# cross attention's backward (B, Hq, Hkv, Sq, Skv, d): seamless's decoder
+# over its memory (Sq = 2 Skv), few queries over a long memory, ragged
+# lengths off the 64-row tile at the widest head
+CROSS_BWD_CASES = [(4, 16, 16, 2048, 1024, 64), (2, 4, 4, 16, 1024, 64),
+                   (1, 4, 2, 1000, 333, 128)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,d", CROSS_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_bwd_cross_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, d,
+                                            dtype):
+    """Cross attention's training form (non-causal, no window, queries at
+    offset 0, Sq != Skv): the forward's o and lse against the plain ones,
+    the backward kernels (simt in f32; tc and simt in bf16, tc also
+    against its mirror) against ``attention_bwd_plain``, three launches a
+    call; dk and dv have k's and v's length."""
+    q, k, v = _attn_inputs(cuda, B, Hq, Hkv, Sq, Skv, d, dtype,
+                           seed=Sq + Skv)
+    do = torch.randn(q.shape, device=cuda).to(dtype)
+    kw = dict(causal=False, window=None)
+    o, lse = fak.flash_attention_lse(q, k, v, **kw)
+    want_o, want_lse = attention_lse_plain(q, k, v, q_offset=0, **kw)
+    _attn_close(o, want_o, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    want = attention_bwd_plain(q, k, v, o, lse, do, q_offset=0, **kw)
+    variant = "tc" if dtype == torch.bfloat16 else "simt"
+    assert fab.variant_for(q, k, v, o, do) == variant
+    before = (fab.launch_count(), fab.launch_count(variant))
+    got = fab.attention_bwd(q, k, v, o, lse, do, **kw)
+    assert (fab.launch_count(), fab.launch_count(variant)) == \
+        (before[0] + 3, before[1] + 1)
+    assert tuple(got[1].shape) == tuple(got[2].shape) == (B, Hkv, Skv, d)
+    _bwd_close(got, want, dtype)
+    if variant == "tc":
+        _mirror_close(got, attention_bwd_tc_plain(q, k, v, o, lse, do,
+                                                  **kw))
+        _bwd_close(fab.attention_bwd(q, k, v, o, lse, do, variant="simt",
+                                     **kw), want, dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,d", [
+    (4, 16, 16, 2048, 1024, 64), (2, 4, 2, 300, 70, 128),
+    (1, 2, 2, 129, 1, 64)])
+def test_flash_attn_lse_tc_cross_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, d):
+    """The tc forward with its lse at Sq > Skv (query tiles past the last
+    kv slot, every query at offset 0 seeing every slot) against
+    ``attention_lse_plain``; ``flash_attention`` at ``q_offset=0`` gives
+    the same output bit for bit."""
+    q, k, v = _attn_inputs(cuda, B, Hq, Hkv, Sq, Skv, d, torch.bfloat16,
+                           seed=Sq * 3 + Skv)
+    assert fak.variant_for(q, k, v) == "tc"
+    before = fak.launch_count("tc")
+    o, lse = fak.flash_attention_lse(q, k, v, causal=False)
+    assert fak.launch_count("tc") == before + 1
+    want_o, want_lse = attention_lse_plain(q, k, v, causal=False,
+                                           q_offset=0)
+    _attn_close(o, want_o, torch.bfloat16)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o, fak.flash_attention(q, k, v, causal=False,
+                                              q_offset=0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_bwd_cross_bit_reproducible(cuda, dtype):
+    q, k, v = _attn_inputs(cuda, 2, 8, 8, 1000, 333, 64, dtype, seed=5)
+    do = torch.randn(q.shape, device=cuda).to(dtype)
+    o, lse = fak.flash_attention_lse(q, k, v, causal=False)
+    a = fab.attention_bwd(q, k, v, o, lse, do, causal=False)
+    b = fab.attention_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-26b"])
+def test_smoke_multimodal_training_step_on_card_equals_cpu(cuda, arch):
+    """One full ``make_train_step`` step of the smoke seamless-m4t
+    (encoder-decoder, cross attention at Sq = 2 Skv) and internvl2 (patch
+    prefix) at f32 on the card (simt forward, backward kernels, remat
+    "dots") and on the CPU from the same weights and batch: the gradients
+    to 1e-4 of each leaf's largest, the loss to 1e-5 and the clipped
+    gradient norm to 1e-4; the step's launches exact; every updated
+    weight within 2 lr of the CPU's (the first AdamW step is about lr
+    times the gradient's sign)."""
+    from repro_torch.launch.train import make_batches
+    from repro_torch.optim.adamw import OptCfg
+    from repro_torch.train import step as tstep
+    cfg = configs.smoke(arch).with_(act_dtype="float32")
+    tcfg = tstep.TrainCfg(opt=OptCfg(lr=1e-3, warmup_steps=1,
+                                     total_steps=10))
+    cpu, cpu_opt = tstep.init_train_state(3, cfg, tcfg, device="cpu")
+    gpu, gpu_opt = tstep.init_train_state(4, cfg, tcfg, device=cuda)
+    with torch.no_grad():
+        for a, b in zip(gpu.parameters(), cpu.parameters()):
+            a.copy_(b)
+    _, batch = next(make_batches(cfg, 7, 1, 2, 48, device="cpu"))
+    gbatch = {k: t.to(cuda) for k, t in batch.items()}
+    loss_g, grads_g = tstep._value_and_grad(gpu, gbatch)
+    loss_c, grads_c = tstep._value_and_grad(cpu, batch)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for name, b in grads_c.items():
+        assert float((grads_g[name].cpu() - b).abs().max()) <= \
+            1e-4 * float(b.abs().max()), name
+    calls = cfg.n_layers + (cfg.encoder_layers + cfg.n_layers
+                            if cfg.kind == "encdec" else 0)
+    before = (fak.launch_count("simt"), fab.launch_count())
+    _, _, met_g = tstep.make_train_step(cfg, tcfg)(gpu, gpu_opt, gbatch)
+    assert (fak.launch_count("simt") - before[0],
+            fab.launch_count() - before[1]) == (2 * calls, 3 * calls)
+    _, _, met_c = tstep.make_train_step(cfg, tcfg)(cpu, cpu_opt, batch)
+    assert abs(float(met_g["loss"]) - float(met_c["loss"])) <= \
+        1e-5 * abs(float(met_c["loss"]))
+    assert abs(float(met_g["grad_norm"]) - float(met_c["grad_norm"])) <= \
+        1e-4 * float(met_c["grad_norm"])
+    for a, b in zip(gpu.parameters(), cpu.parameters()):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= \
+            2 * tcfg.opt.lr
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "h2o-danube-1.8b",

@@ -8,7 +8,9 @@ reference's largest value; the port's own decode against its forward
 (``tests/test_models.py::test_encdec_decode_matches_forward``'s bar).
 Also the full configs' parameter counts (built on the ``meta`` device)
 against ``jax.eval_shape`` of the reference's ``init_params``, the
-state-dict names' round trip, and the refusal to train."""
+state-dict names' round trip, and training's remat: each layer recomputed
+whole, with the gradients of remat "none" (the gradients against the
+reference's are ``tests/test_torch_train.py``'s)."""
 
 from __future__ import annotations
 
@@ -24,9 +26,7 @@ from repro.models import layers as jlayers
 from repro.models import transformer as jT
 from repro_torch import configs
 from repro_torch.kernels.flash_attn import kernel as fk
-from repro_torch.launch import train as train_launcher
 from repro_torch.models import encdec, layers, transformer
-from repro_torch.train import step as train_lib
 
 torch.set_num_threads(1)
 
@@ -202,21 +202,6 @@ def test_state_dict_names_round_trip(arch):
             model, {k: v for k, v in params.items() if k != "adapter"})
 
 
-@pytest.mark.parametrize("arch", [ARCH, "internvl2-26b"])
-def test_training_is_refused(arch, tmp_path):
-    cfg = configs.smoke(arch).with_(act_dtype="float32")
-    match = "ROADMAP queue 1, item 5.2"
-    with pytest.raises(NotImplementedError, match=match):
-        train_lib.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        train_lib.init_train_state(0, cfg, train_lib.TrainCfg(),
-                                   device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        train_launcher.main(["--arch", arch, "--smoke", "--steps", "2",
-                             "--batch", "2", "--seq", "16", "--device",
-                             "cpu", "--ckpt-dir", str(tmp_path)])
-
-
 def test_decoder_lm_refuses_an_encdec_config():
     with pytest.raises(ValueError, match="models.encdec"):
         transformer.DecoderLM(configs.smoke(ARCH), device="cpu")
@@ -224,11 +209,39 @@ def test_decoder_lm_refuses_an_encdec_config():
         encdec.EncDecLM(configs.smoke("qwen1.5-0.5b"), device="cpu")
 
 
-def test_cross_attention_refuses_gradients():
-    """Cross attention (Sq != Skv, queries at offset 0) is not the
-    attention backward's training form: under grad mode it raises."""
-    cfg = configs.smoke(ARCH).with_(act_dtype="float32")
-    model = encdec.EncDecLM(cfg, device="cpu").requires_grad_(True)
-    frames, toks = _inputs(cfg)
-    with pytest.raises(ValueError, match="training form"):
-        encdec.forward(model, _t(frames), _t(toks))
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_training_remat_recomputes_each_layer(remat, monkeypatch):
+    """With grad on, every attention call (the encoder's, the decoder's
+    self and cross attention) goes through the training form's forward
+    once a layer without remat and again in the backward's recompute
+    with it (each layer checkpointed whole, the reference's
+    ``jax.checkpoint``); the gradients equal remat "none"'s. The serving
+    model has no gradients, ``train=True`` every parameter."""
+    calls = []
+    fwd = fk._forward_lse
+
+    def counting(*a, **kw):
+        calls.append(a[0].shape[2] != a[1].shape[2])   # cross attention
+        return fwd(*a, **kw)
+
+    monkeypatch.setattr(fk, "_forward_lse", counting)
+    frames, toks = _inputs(configs.smoke(ARCH))
+    labels = np.roll(toks, -1, axis=1)
+    out = {}
+    for mode in ("none", remat):
+        cfg = configs.smoke(ARCH).with_(act_dtype="float32", remat=mode)
+        model = encdec.EncDecLM(cfg, device="cpu", train=True)
+        assert all(p.requires_grad for p in model.parameters())
+        calls.clear()
+        loss = encdec.loss_fn(model, _t(frames), _t(toks), _t(labels))
+        out[mode] = torch.autograd.grad(loss, list(model.parameters()))
+        once = cfg.encoder_layers + 2 * cfg.n_layers
+        assert len(calls) == once * (1 if mode == "none" else 2), mode
+        assert sum(calls) == cfg.n_layers * (1 if mode == "none" else 2)
+    for a, b in zip(out["none"], out[remat]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    assert not any(p.requires_grad for p in encdec.EncDecLM(
+        configs.smoke(ARCH), device="cpu").parameters())
+    with pytest.raises(ValueError, match="remat"):
+        encdec.EncDecLM(configs.smoke(ARCH).with_(remat="some"),
+                        device="cpu")

@@ -7,7 +7,9 @@ within 1e-5 of the largest gradient magnitude; the training form's
 autograd function (what the models take with grad on) against the same;
 the wrapper's refusals of what the kernel does not take; and the tc
 kernels' mirror (``attention_bwd_tc_plain``) within the bf16 bar of the
-plain version."""
+plain version. Cross attention (the encoder-decoder's: Sq != Skv,
+non-causal, no window, queries at offset 0) at Sq > Skv, Sq < Skv and
+lengths off the 64-row tile, through the same three comparisons."""
 
 from __future__ import annotations
 
@@ -34,10 +36,12 @@ torch.set_num_threads(1)
 REL = 1e-5
 
 
-def _inputs(seed, B, Hq, Hkv, S, d):
+def _inputs(seed, B, Hq, Hkv, S, d, Skv=None):
+    """q, k, v, do; k and v of ``Skv`` slots (default ``S``)."""
     rng = np.random.default_rng(seed)
+    Skv = S if Skv is None else Skv
     return [rng.standard_normal(s, dtype=np.float32)
-            for s in ((B, Hq, S, d), (B, Hkv, S, d), (B, Hkv, S, d),
+            for s in ((B, Hq, S, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d),
                       (B, Hq, S, d))]
 
 
@@ -158,7 +162,14 @@ def test_training_form_refuses_other_calls():
     arrs = _inputs(1, 1, 2, 2, 16, 32)
     q, k, v, do = map(torch.from_numpy, arrs)
     with pytest.raises(ValueError, match="training form"):
-        fab.flash_attention_train(q[:, :, :8], k, v)       # Sq != Skv
+        fab.flash_attention_train(q[:, :, :8], k, v,       # Sq != Skv,
+                                  causal=True)             # causal
+    with pytest.raises(ValueError, match="training form"):
+        fab.flash_attention_train(q[:, :, :8], k, v, causal=False,
+                                  window=4)                # a window
+    with pytest.raises(ValueError, match="training form"):
+        layers._chunk_attention(q[:, :, :8].requires_grad_(), k, v,
+                                causal=False, window=None, q_offset=2)
     with pytest.raises(ValueError, match="training form"):
         fab.flash_attention_train(q[..., :24], k[..., :24], v[..., :24])
     with pytest.raises(ValueError, match="lse"):
@@ -264,3 +275,57 @@ def test_broadcast_views_are_copied_for_the_tensor_maps():
     wide = row.expand(B, H, S, d)
     got = fab._strided(wide)
     assert got.is_contiguous() and torch.equal(got, wide)
+
+
+# cross attention's shapes (Sq, Skv, Hq, Hkv, d): Sq > Skv off the tile
+# (70 over 33), Sq < Skv, Sq = 2 Skv (the encoder-decoder's decoder over
+# its memory), group 1 each, and one grouped case
+CROSS_CASES = [(70, 33, 4, 4, 32), (33, 70, 4, 4, 64), (128, 64, 2, 2, 64),
+               (16, 100, 4, 2, 32)]
+
+
+@pytest.mark.parametrize("Sq,Skv,Hq,Hkv,d", CROSS_CASES)
+def test_bwd_plain_cross_matches_reference_vjp(Sq, Skv, Hq, Hkv, d):
+    """``attention_bwd_plain`` at ``q_offset`` 0, non-causal, against
+    ``jax.vjp`` of the reference's ``_chunk_attention(causal=False,
+    q_offset=0)`` (cross attention), within ``REL``."""
+    arrs = _inputs(Sq * Skv + d, 2, Hq, Hkv, Sq, d, Skv=Skv)
+    got = _port_grads(*map(torch.from_numpy, arrs), False, None, q_offset=0)
+    assert tuple(got[1].shape) == (2, Hkv, Skv, d)
+    _close(got, _jax_vjp(False, None, 0)(*map(jnp.asarray, arrs)))
+
+
+@pytest.mark.parametrize("Sq,Skv,Hq,Hkv,d", CROSS_CASES)
+def test_bwd_tc_mirror_cross_matches_plain(Sq, Skv, Hq, Hkv, d):
+    """The tc kernels' mirror at cross attention's shapes (query tiles
+    and kv tiles of other lengths) within the bf16 bar of the plain
+    version."""
+    q, k, v, do = [torch.from_numpy(a).to(torch.bfloat16) for a in
+                   _inputs(Sq + Skv, 1, Hq, Hkv, Sq, d, Skv=Skv)]
+    kw = dict(causal=False, window=None)
+    o, lse = attention_lse_plain(q, k, v, q_offset=0, **kw)
+    want = attention_bwd_plain(q, k, v, o, lse, do, q_offset=0, **kw)
+    got = attention_bwd_tc_plain(q, k, v, o, lse, do, **kw)
+    assert _tol_share(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("Sq,Skv", [(70, 33), (16, 100)])
+def test_training_form_cross_autograd_matches_reference(Sq, Skv):
+    """Cross attention with grad on, through ``flash_attention_train``
+    and ``layers._chunk_attention`` (what ``cross_attention_block`` calls),
+    on the CPU against ``jax.vjp`` of the reference's ``_chunk_attention``;
+    the forward's lse is the plain one's at ``q_offset`` 0."""
+    arrs = _inputs(Sq + 7 * Skv, 2, 4, 4, Sq, 64, Skv=Skv)
+    want = _jax_vjp(False, None, 0)(*map(jnp.asarray, arrs))
+    for run in (functools.partial(fab.flash_attention_train, causal=False),
+                functools.partial(layers._chunk_attention, causal=False,
+                                  window=None, q_offset=0)):
+        leaves = [torch.from_numpy(a).requires_grad_() for a in arrs[:3]]
+        out = run(*leaves)
+        _close(torch.autograd.grad(out, leaves, torch.from_numpy(arrs[3])),
+               want)
+    q, k, v = map(torch.from_numpy, arrs[:3])
+    out, lse = fak.flash_attention_lse(q, k, v, causal=False)
+    want_o, want_lse = attention_lse_plain(q, k, v, causal=False,
+                                           q_offset=0)
+    assert torch.equal(out, want_o) and torch.equal(lse, want_lse)

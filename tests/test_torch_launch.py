@@ -3,8 +3,11 @@ asked (``--device cpu``, smoke configs) and exit 0: the training
 launcher (its own loss-decrease check at 20 steps, checkpoints after
 steps 0 and 10), the serving launcher's index and LM services, both
 launchers on the smoke rwkv6 and jamba (RWKV6, Mamba, attention and MoE
-through the plain versions; 3 training steps, under the loss check),
-and
+through the plain versions; 3 training steps, under the loss check), the
+training launcher on the smoke seamless-m4t (encoder-decoder) and
+internvl2 (vision prefix) at the qwen case's size (its loss check and
+checkpoints; in process, ``--resume`` repeating the uninterrupted run's
+losses bit for bit), and
 ``examples/port/{train_lm,serve_lm}.py`` (each asserts its own answers:
 a second phase resumed from the first's newest checkpoint, holding 11
 steps; greedy decode against the teacher-forced forward). The example's
@@ -57,6 +60,14 @@ CASES = {
     "train_jamba": ["-m", "repro_torch.launch.train", "--arch",
                     "jamba-1.5-large-398b", "--smoke", "--device", "cpu",
                     "--steps", "3", "--batch", "2", "--seq", "32"],
+    "train_seamless": ["-m", "repro_torch.launch.train", "--arch",
+                       "seamless-m4t-large-v2", "--smoke", "--device", "cpu",
+                       "--steps", "20", "--batch", "8", "--seq", "64",
+                       "--ckpt-dir", "{tmp}/ck"],
+    "train_internvl2": ["-m", "repro_torch.launch.train", "--arch",
+                        "internvl2-26b", "--smoke", "--device", "cpu",
+                        "--steps", "20", "--batch", "8", "--seq", "64",
+                        "--ckpt-dir", "{tmp}/ck"],
 }
 EXPECT = {"train": "qwen1.5-0.5b: 20 steps",
           "serve_index": "index service [uniform/spac-h]",
@@ -68,7 +79,9 @@ EXPECT = {"train": "qwen1.5-0.5b: 20 steps",
           "serve_lm_phi_moe": "lm serving [phi3.5-moe-42b-a6.6b]",
           "serve_lm_qwen3_moe": "lm serving [qwen3-moe-235b-a22b]",
           "train_rwkv6": "rwkv6-3b: 3 steps",
-          "train_jamba": "jamba-1.5-large-398b: 3 steps"}
+          "train_jamba": "jamba-1.5-large-398b: 3 steps",
+          "train_seamless": "seamless-m4t-large-v2: 20 steps",
+          "train_internvl2": "internvl2-26b: 20 steps"}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -80,7 +93,7 @@ def test_runs_on_the_cpu(name, tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert EXPECT[name] in out.stdout
-    if name == "train":
+    if name in ("train", "train_seamless", "train_internvl2"):
         assert sorted(os.listdir(tmp_path / "ck")) == ["step_00000001",
                                                       "step_00000011"]
     if name == "example_train_lm":
@@ -93,3 +106,18 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(module, monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         module.main(["--smoke", "--steps", "1"] if module is train_launcher
                      else ["--service", "lm"])
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-26b"])
+def test_multimodal_resume_repeats_losses(arch, tmp_path):
+    """The launcher in process: 14 steps of the smoke config with
+    checkpoints, then ``--resume`` from the newest (after step 10,
+    holding 11 steps): its losses are the first run's of steps 11-13 bit
+    for bit (the encoder-decoder's and the adapter's state and the
+    moments carried by ``ckpt``)."""
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "14",
+            "--batch", "4", "--seq", "32", "--ckpt-dir", str(tmp_path)]
+    first = train_launcher.main(args)
+    second = train_launcher.main(args + ["--resume"])
+    assert len(first) == 14 and len(second) == 3
+    assert second == first[11:]

@@ -152,3 +152,33 @@ def test_reference_duplicate_delete_anomaly_is_reproduced():
                       torch.as_tensor(pts[:32]))
     assert_trees_equal(got, ref, "insert + delete")
     assert int(got.size) == int(ref.size)
+
+
+def test_spac_delete_shortfall_at_128_points_matches_reference():
+    """The example hypothesis found for ``tests/test_properties.py::
+    test_spac_knn_exact_after_updates``: 96 points, one at (0, 1) and 95 at
+    (1, 1), 32 inserts at the origin, then a delete of the first 32
+    points. 96 points are due live; the reference leaves 97 (its delete
+    shortfall, ROADMAP queue 3). The port's live count and live points
+    (as a multiset) equal the reference's, and its tree field for
+    field."""
+    pts = np.array([[0, 1]] + [[1, 1]] * 95, np.int32)
+    ins = np.zeros((32, 2), np.int32)
+    meta = dict(phi=PHI, curve="hilbert", bits=12, coord_bits=12)
+    ref = jspac.build(jnp.asarray(pts), capacity_rows=256, **meta)
+    got = spac.build(torch.as_tensor(pts), capacity_rows=256, **meta)
+    ref = jspac.delete(jspac.insert(ref, jnp.asarray(ins)),
+                       jnp.asarray(pts[:32]))
+    got = spac.delete(spac.insert(got, torch.as_tensor(ins)),
+                      torch.as_tensor(pts[:32]))
+    assert_trees_equal(got, ref, "insert + delete")
+    assert int(got.size) == int(ref.size) == 97
+
+    def live(points, ok):
+        points = np.asarray(points)[np.asarray(ok)]
+        return points[np.lexsort(points.T[::-1])]
+
+    want = live(*jspac.extract_points(ref))
+    have = live(*(t.numpy() for t in spac.extract_points(got)))
+    assert len(want) == 97
+    np.testing.assert_array_equal(have, want)

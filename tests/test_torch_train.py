@@ -11,7 +11,15 @@ gradients to 1e-4 of each leaf's largest magnitude), one
 compressed on qwen; plain on each mixer arch), microbatch equivalence
 and compression as in ``tests/test_models.py``, the three ``remat``
 modes, and the weight and state trees (f32 leaves staying f32, the AdamW
-moments under the same keys) carried across in both directions."""
+moments under the same keys) carried across in both directions. The
+multimodal archs' smoke configs, seamless-m4t-large-v2 (encoder-decoder:
+the encoder over frame embeddings, cross attention at Sq != Skv) and
+internvl2-26b (patch embeddings before the tokens): the loss and every
+gradient leaf against ``jax.value_and_grad`` of the reference's
+``_model_loss`` branch under remat "none" and the arch's own, one
+``make_train_step`` step against the reference's (plain, microbatched,
+compressed), the state tree's round trip, and the launcher's own inputs
+through both packages' steps."""
 
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import pytest
 import torch
 
 import repro.configs as jconfigs
+from repro.models import encdec as jE
 from repro.models import transformer as jT
 from repro.optim import adamw as jadamw
 from repro.train import step as jstep
@@ -37,6 +46,9 @@ torch.set_num_threads(1)
 MIXER_ARCHS = ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
                "jamba-1.5-large-398b", "rwkv6-3b")
 ARCHS = ("qwen1.5-0.5b", "yi-9b", "h2o-danube-1.8b", *MIXER_ARCHS)
+# the encoder-decoder and the vision-frontend stub: their batches carry
+# ``prefix`` (frame or patch embeddings)
+MM_ARCHS = ("seamless-m4t-large-v2", "internvl2-26b")
 
 
 def _cfg(arch, **kw):
@@ -49,14 +61,19 @@ def _np(tree):
 
 
 def _ref_params(jcfg, seed=0):
-    """The reference's init tree with its zero QKV biases made nonzero."""
-    p = _np(jT.init_params(jax.random.PRNGKey(seed), jcfg))
+    """The reference's init tree (its encoder-decoder's for an encdec
+    config) with its zero QKV and adapter biases made nonzero."""
+    init = jE.init_params if jcfg.kind == "encdec" else jT.init_params
+    p = _np(init(jax.random.PRNGKey(seed), jcfg))
     rng = np.random.default_rng(seed)
-    mixer = p["groups"]["pos0"]["mixer"]
-    for name in ("bq", "bk", "bv"):
-        if name in mixer:
-            mixer[name] = rng.standard_normal(mixer[name].shape,
-                                              dtype=np.float32) * 0.1
+    biases = [(p["adapter"], ("b",))] if "adapter" in p else []
+    if "groups" in p:
+        biases.append((p["groups"]["pos0"]["mixer"], ("bq", "bk", "bv")))
+    for tree, names in biases:
+        for name in names:
+            if name in tree:
+                tree[name] = rng.standard_normal(tree[name].shape,
+                                                 dtype=np.float32) * 0.1
     return p
 
 
@@ -73,6 +90,19 @@ def _batch(cfg, B=2, S=40, seed=1):
     labels = rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)
     labels[0, :3] = -1                       # ignored positions
     return toks, labels
+
+
+def _batch_dict(cfg, B, S, seed) -> dict:
+    """``_batch`` as a train step's batch (numpy), with the ``prefix`` of
+    the multimodal archs as the launcher makes it: ``S // 2`` frames for
+    the encoder-decoder, ``frontend_seq`` patches for a frontend arch."""
+    toks, labels = _batch(cfg, B=B, S=S, seed=seed)
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.kind == "encdec" or cfg.frontend is not None:
+        P = S // 2 if cfg.kind == "encdec" else cfg.frontend_seq
+        batch["prefix"] = np.random.default_rng(seed + 1).standard_normal(
+            (B, P, cfg.frontend_dim), dtype=np.float32)
+    return batch
 
 
 def _assert_tree_close(got, want, rel):
@@ -196,6 +226,102 @@ def test_train_step_matches_reference_mixers(arch):
     _check_train_step(arch, {})
 
 
+@pytest.mark.parametrize("remat", ["none", "arch"])
+@pytest.mark.parametrize("arch", MM_ARCHS)
+def test_loss_and_grads_match_reference_multimodal(arch, remat):
+    """The multimodal archs' loss over 24 tokens in chunks of 16 with
+    ignored labels and a ``prefix`` (12 frames for seamless's encoder,
+    internvl2's 8 patches) and every gradient leaf, adapter included,
+    against ``jax.value_and_grad`` of the reference's ``_model_loss``
+    branch, under remat "none" and the arch's own ("dots": each
+    encoder-decoder layer recomputed whole, as the reference's
+    ``jax.checkpoint``; the decoder LM's selective policy)."""
+    kw = {"loss_chunk": 16} if remat == "arch" else \
+        {"loss_chunk": 16, "remat": "none"}
+    cfg, jcfg = _cfg(arch, **kw)
+    params = _ref_params(jcfg, seed=5)
+    batch = _batch_dict(cfg, B=2, S=24, seed=6)
+    jloss, jgrads = jax.jit(jax.value_and_grad(jstep._model_loss(jcfg)))(
+        jax.tree.map(jnp.asarray, params),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    model = _model(cfg, params)
+    names = [k for k, _ in model.named_parameters()]
+    loss, grads = tstep._value_and_grad(
+        model, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    got = transformer.reference_tree({k: grads[k] for k in names})
+    _assert_tree_close(jax.tree.map(lambda t: t.numpy(), got),
+                       _np(jgrads), 1e-4)
+
+
+@pytest.mark.parametrize("arch,tcfg_kw", [
+    (MM_ARCHS[0], {}), (MM_ARCHS[0], {"n_microbatch": 2}),
+    (MM_ARCHS[0], {"compress_grads": True}), (MM_ARCHS[1], {}),
+    (MM_ARCHS[1], {"n_microbatch": 2, "compress_grads": True})],
+    ids=["seamless-plain", "seamless-microbatch2", "seamless-compressed",
+         "internvl2-plain", "internvl2-microbatch2-compressed"])
+def test_train_step_matches_reference_multimodal(arch, tcfg_kw):
+    """One step of each multimodal arch (the batch's ``prefix`` split
+    with the rest by microbatching) under the bars of
+    :func:`test_train_step_matches_reference`."""
+    _check_train_step(arch, tcfg_kw)
+
+
+@pytest.mark.parametrize("arch", MM_ARCHS)
+def test_multimodal_state_round_trip(arch):
+    """The encoder-decoder's and the frontend arch's training state (the
+    encoder and decoder layers stacked, the adapter, moments and ``ef``)
+    as the reference's tree and back into a fresh state, after a step;
+    the tree's structure is the reference's ``init_params`` tree's."""
+    cfg, jcfg = _cfg(arch)
+    tcfg = tstep.TrainCfg(compress_grads=True)
+    src, state = tstep.init_train_state(1, cfg, tcfg, device="cpu")
+    batch = _batch_dict(cfg, B=2, S=16, seed=7)
+    tstep.make_train_step(cfg, tcfg)(
+        src, state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    tree = jax.tree.map(lambda t: t.numpy(), tstep.state_tree(src, state))
+    dst, fresh = tstep.init_train_state(2, cfg, tcfg, device="cpu")
+    tstep.load_state_tree(dst, fresh, tree)
+    again = jax.tree.map(lambda t: t.numpy(), tstep.state_tree(dst, fresh))
+    assert jax.tree.structure(again) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(again), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a, b)
+    ref = _ref_params(jcfg)
+    for key in ("params", ("opt", "m"), ("opt", "ef")):
+        sub = tree[key] if isinstance(key, str) else tree[key[0]][key[1]]
+        assert jax.tree.structure(sub) == jax.tree.structure(ref), key
+
+
+@pytest.mark.parametrize("arch", MM_ARCHS)
+def test_launcher_inputs_match_reference_multimodal(arch):
+    """The training launcher's own inputs at seed 0 (the port's initial
+    weights, ``make_batches``' tokens and its seeded frames or patches,
+    handed to the reference as numpy) at the launcher's default batch,
+    length and lr (8 x 128, 3e-4; 4 of its steps): the reference's jitted
+    step gives the port's losses within 1e-5, step by step, so the
+    launcher's loss-decrease check decides alike in both packages on
+    these inputs (uniform tokens make it a coin flip at this lr: ROADMAP
+    queue 3)."""
+    from repro_torch.launch.train import make_batches
+    cfg, jcfg = _cfg(arch)
+    opt = dict(lr=3e-4, warmup_steps=10, total_steps=20)
+    tcfg = tstep.TrainCfg(opt=adamw.OptCfg(**opt))
+    jtcfg = jstep.TrainCfg(opt=jadamw.OptCfg(**opt))
+    model, state = tstep.init_train_state(0, cfg, tcfg, device="cpu")
+    jp = jax.tree.map(jnp.asarray, transformer.reference_params(model))
+    jo = jadamw.adamw_init(jp)
+    jfn = jax.jit(jstep.make_train_step(jcfg, jtcfg))
+    fn = tstep.make_train_step(cfg, tcfg)
+    got, want = [], []
+    for _, b in make_batches(cfg, 0, 4, 8, 128, device="cpu"):
+        model, state, m = fn(model, state, b)
+        got.append(float(m["loss"]))
+        jp, jo, jm = jfn(jp, jo, {k: jnp.asarray(v.numpy())
+                                  for k, v in b.items()})
+        want.append(float(jm["loss"]))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
 def _check_train_step(arch, tcfg_kw):
     cfg, jcfg = _cfg(arch)
     opt = dict(lr=1e-3, warmup_steps=1, total_steps=10)
@@ -205,8 +331,7 @@ def _check_train_step(arch, tcfg_kw):
     jopt = jadamw.adamw_init(jax.tree.map(jnp.asarray, params))
     if tcfg.compress_grads:
         jopt["ef"] = jax.tree.map(jnp.zeros_like, jopt["m"])
-    toks, labels = _batch(cfg, B=4, S=24, seed=3)
-    batch = {"tokens": toks, "labels": labels}
+    batch = _batch_dict(cfg, B=4, S=24, seed=3)
     jp, jo, jm = jax.jit(jstep.make_train_step(jcfg, jtcfg))(
         jax.tree.map(jnp.asarray, params), jopt,
         {k: jnp.asarray(v) for k, v in batch.items()})
